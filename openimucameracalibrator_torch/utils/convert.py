@@ -1,0 +1,57 @@
+"""Carry parameters and problems across from the JAX package as numpy.
+
+The JAX package's spline parameter dict and ``SplineProblem`` fields,
+given as numpy arrays (``{k: np.asarray(v)}``), become the port's tensors
+and back, so that both packages compute from the same state. This module
+imports nothing of the JAX package: the caller converts to numpy.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from openimucameracalibrator_torch.core import spline_estimator as se
+from openimucameracalibrator_torch.utils import precision
+
+PARAM_KEYS = ("q_so3", "t_r3", "bias_a", "bias_g", "gravity", "q_i_c", "t_i_c",
+              "line_delay", "time_offset", "accl_intr", "gyro_intr", "points")
+
+
+def params_from_numpy(d: dict, device=None, dtype=None) -> dict:
+    """Spline parameter dict of numpy arrays -> dict of tensors."""
+    device = precision.resolve_device(device)
+    dtype = precision.resolve(dtype, device)
+    unknown = set(d) - set(PARAM_KEYS)
+    if unknown:
+        raise KeyError(f"unknown spline parameter(s): {sorted(unknown)}")
+    return {k: torch.as_tensor(np.array(v), dtype=dtype, device=device)
+            for k, v in d.items()}
+
+
+def params_to_numpy(params: dict) -> dict:
+    """Dict of tensors -> dict of float64 numpy arrays."""
+    return {k: v.detach().cpu().numpy().astype(np.float64) for k, v in params.items()}
+
+
+def problem_from_numpy(fields: dict, device=None, dtype=None) -> se.SplineProblem:
+    """``SplineProblem`` fields (numpy arrays, Python scalars, None) ->
+    the port's ``SplineProblem``. Float arrays take ``dtype``, boolean
+    masks stay boolean, integer index arrays become int64."""
+    device = precision.resolve_device(device)
+    dtype = precision.resolve(dtype, device)
+    out = {}
+    for k, v in fields.items():
+        if v is None or isinstance(v, (bool, int, float, str)):
+            out[k] = v
+            continue
+        a = np.array(v)  # a writable copy
+        if a.ndim == 0:
+            out[k] = a.item()
+        elif a.dtype == bool:
+            out[k] = torch.as_tensor(a, device=device)
+        elif np.issubdtype(a.dtype, np.integer):
+            out[k] = torch.as_tensor(a.astype(np.int64), device=device)
+        else:
+            out[k] = torch.as_tensor(a, dtype=dtype, device=device)
+    return se.SplineProblem(**out)
