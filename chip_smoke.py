@@ -1,22 +1,34 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's stage-8 main path on one CUDA GPU and check it.
+"""Run the PyTorch port's main paths on one CUDA GPU and check them.
 
     python3 chip_smoke.py
 
 Phases (every failure exits non-zero; nothing is caught and carried on):
 
-1. device   — the card's name, and its name and power limit per nvidia-smi.
-2. build    — build the fused densify + Gram CUDA kernel (csrc/gram.cu).
-3. scene    — the DS3-scale synthetic recording (60 s, 60 fps, 200 Hz IMU,
-              960x540 division-undistortion camera, rolling shutter,
-              charuco 10x8) rendered on the card, and its stage-8 input
-              artifacts written to a temporary directory.
-4. kernels  — the kernel against its plain PyTorch version at the three
-              family shapes of that recording's chunk plan, with times.
-5. main     — the port's stage-8 CLI on those artifacts on the card, with
-              its default iteration caps; recovery of the truth, and the
-              kernel launches counted during the run; then the time of one
-              linearization of the same problem.
+1. device    — the card's name, and its name and power limit per nvidia-smi.
+2. build     — build both CUDA kernels at once, one nvcc each: the fused
+               densify + Gram (csrc/gram.cu, K1) and the corner response +
+               NMS (csrc/corner_nms.cu, K2).
+3. scene     — the DS3-scale synthetic recording (60 s, 60 fps, 200 Hz IMU,
+               960x540 division-undistortion camera, rolling shutter,
+               charuco 10x8) rendered on the card, and its stage-8 input
+               artifacts written to a temporary directory.
+4. K1        — the Gram kernel against its plain PyTorch version at the
+               three family shapes of that recording's chunk plan, with times.
+5. stage 8   — the port's stage-8 CLI on those artifacts on the card, with
+               its default iteration caps; recovery of the truth, and the
+               K1 launches counted during the run; then the time of one
+               linearization of the same problem.
+6. render    — 300 frames at 960x540 of a 10x8 checkerboard (0.04 m
+               squares) through the division-undistortion camera along a
+               sinusoid trajectory, rendered on the card (supersample 2,
+               1.5 DN noise).
+7. K2        — the corner kernel against its plain PyTorch version on one of
+               those frames and on one random frame: response, local-max
+               mask, candidate lists; with times.
+8. intrinsics — the radon path on the card: extract_board on the 300 frames,
+               the corner file, the calibrate_camera CLI; recovery of the
+               camera, and one K2 launch per frame.
 
 The line before the last is a JSON object listing every ported kernel; the
 last line is ``{"ok": true, "device": {...}}``. Needs one CUDA device and
@@ -24,6 +36,7 @@ the ``openimucameracalibrator_torch`` package beside this script; imports
 nothing of the JAX package.
 """
 
+import concurrent.futures
 import json
 import math
 import os
@@ -32,6 +45,8 @@ import subprocess
 import sys
 import tempfile
 import time
+
+import numpy as np
 
 DURATION = 60.0
 CAM_FPS = 60.0
@@ -42,11 +57,20 @@ CAM = [437.13, 489.07, 270.87, -1.4386e-06]
 SEW = dict(dt_so3=0.050, dt_r3=0.089, std_so3=0.002, std_r3=0.02)
 INIT_ROT_ERR, INIT_TIME_ERR = 3e-3, 3e-3  # rotation-init perturbation: rad, s
 
+# Intrinsics path: the 10x8 checkerboard, 0.04 m squares, seen by the
+# division-undistortion camera CAM with identity extrinsics.
+N_FRAMES = 300
+SQUARES = (10, 8)
+TRAJ = dict(pos_center=(0.2, 0.16, -0.46), pos_amp=0.1, rot_amp=0.3, base_freq=0.1,
+            q_base=[1.0, 0.0, 0.0, 0.0])
+
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and fp32 CUDA-core FLOP/s.
 HBM_BYTES_S = 3.35e12
 FP32_FLOP_S = 67e12
 SOURCE = "openimucameracalibrator_torch/csrc/gram.cu"
 REPLACES = "openimucameracalibrator_tpu/solver/pallas_gram.py:119"
+K2_SOURCE = "openimucameracalibrator_torch/csrc/corner_nms.cu"
+K2_REPLACES = "openimucameracalibrator_tpu/detect/pallas_kernels.py:184"
 
 
 def log(msg):
@@ -154,6 +178,167 @@ def kernel_phase(gram, shapes):
     return rows
 
 
+def build_kernels(gram, kernels):
+    """Build both kernels at once (one nvcc each) and report each build."""
+    with concurrent.futures.ThreadPoolExecutor(2) as ex:
+        libs = list(ex.map(lambda b: b(), (gram.build, kernels.build)))
+    for lib in libs:
+        log(f"[build] {lib.path} in {lib.build_seconds:.2f} s")
+        for line in lib.build_log.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build] ptxas: {line.strip()}")
+
+
+def render_phase(torch, recorded, render, synthetic, device):
+    """The intrinsics path's frames, rendered on the card: (times, frames)."""
+    t0 = time.perf_counter()
+    pose = synthetic.sinusoid_trajectory(np.random.default_rng(3), 60.0, device=device, **TRAJ)
+    tex = recorded.BoardTexture(render.render_checkerboard(*SQUARES, 64, 32), 64, 32, 0.04)
+    times = np.linspace(0.0, 9.0, N_FRAMES)
+    frames = recorded.render_frames(pose, times, "division_undistortion", CAM,
+                                    [1.0, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0], tex, (960, 540),
+                                    supersample=2, noise_std=1.5, seed=3, device=device)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    log(f"[render] {len(frames)} frames 960x540 (supersample 2, noise 1.5 DN) in {sec:.2f} s "
+        f"({1e3 * sec / len(frames):.2f} ms per frame)")
+    return times, frames
+
+
+def _same_candidates(name, xy, s, xy_p, s_p, scale):
+    """Candidate lists of the kernel and the plain path: the same points and
+    the same order, except among scores within 1e-5 * scale of each other,
+    of the 0.05 * scale threshold or of a full list's last score (the two
+    sum in other orders)."""
+    tol = 1e-5 * scale
+    xy, s, xy_p, s_p = (a.cpu().numpy() for a in (xy, s, xy_p, s_p))
+    cut = max(0.05 * scale, s_p[-1] if s_p[-1] > 0 else 0.0) + tol
+
+    def points(xy_, s_, floor):
+        return {tuple(p) for p, v in zip(xy_, s_) if v > floor}
+
+    ok_set = (points(xy, s, cut) <= points(xy_p, s_p, 0.0)
+              and points(xy_p, s_p, cut) <= points(xy, s, 0.0))
+    apart = s_p > cut
+    apart[1:] &= s_p[:-1] - s_p[1:] > tol
+    apart[:-1] &= s_p[:-1] - s_p[1:] > tol
+    ok_order = bool(np.all(xy[apart] == xy_p[apart]))
+    log(f"[K2] {name}: {int((s_p > 0).sum())} candidates (plain), {int((s > 0).sum())} "
+        f"(kernel); same points: {ok_set}; same order where scores are apart: {ok_order}")
+    return ok_set and ok_order
+
+
+def k2_phase(torch, kernels, frame):
+    """K2 against its plain version at 960x540 on a rendered frame and a
+    random one; returns the kernels-line row (launches filled in later)."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    inputs = {"rendered": torch.as_tensor(frame.astype(np.float32), device="cuda"),
+              "random": 255.0 * torch.rand((540, 960), generator=gen, device="cuda")}
+    errs, ok = [], True
+    for name, x in inputs.items():
+        resp, keep = kernels.corner_response_nms(x)
+        torch.cuda.synchronize()
+        resp_p, keep_p = kernels.corner_response_nms_plain(x)
+        scale = resp_p.abs().max().item()
+        err = (resp - resp_p).abs().max().item()
+        local_max = torch.nn.functional.max_pool2d(resp_p[None, None], 9, 1, 4)[0, 0]
+        agree = (keep == keep_p).float().mean().item()
+        clear = (resp_p - local_max).abs() > 1e-4 * scale
+        exact = bool(torch.equal(keep[clear], keep_p[clear]))
+        log(f"[K2] {name}: resp max_abs_err={err:.3e} (tolerance {2e-5 * scale:.3e} = "
+            f"2e-5 * max|resp|), keep agreement {agree:.6f} (>= 0.999), exact where "
+            f"|resp - local max| > 1e-4 * max|resp|: {exact}")
+        cand = kernels.find_corner_candidates_kernel(x)
+        cand_p = kernels.top_candidates(resp_p, keep_p, 512, 0.05)
+        ok &= (err <= 2e-5 * scale and math.isfinite(err) and agree >= 0.999 and exact
+               and _same_candidates(name, *cand, *cand_p, scale))
+        errs.append(err)
+    if not ok:
+        raise SystemExit("K2 disagrees with its plain version")
+
+    x = inputs["rendered"]
+    H, W = x.shape
+    plain_ms = cuda_ms(lambda: kernels.corner_response_nms_plain(x))
+    kernel_ms = cuda_ms(lambda: kernels.corner_response_nms(x))
+    kernel_ms2 = cuda_ms(lambda: kernels.corner_response_nms(x))
+    plain_ms2 = cuda_ms(lambda: kernels.corner_response_nms_plain(x))
+    resp, keep = kernels.corner_response_nms(x)
+    sort_ms = cuda_ms(lambda: kernels.top_candidates(resp, keep, 512, 0.05))
+    # Least time for the same work: the frame read once, resp and keep
+    # written once; per pixel 2 operations per nonzero tap of the 8 quadrant
+    # kernels, ~30 for the response reduction and 2 * 2n for the separable
+    # (2n+1)^2 max.
+    n_taps = int((kernels._tap_tables(6)[2] != 0).sum())
+    nbytes = H * W * 4 * 3
+    ops = H * W * (2 * n_taps + 30 + 2 * 2 * 4)
+    t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, ops / FP32_FLOP_S * 1e3
+    bound_ms = max(t_bytes, t_ops)
+    log(f"[K2] 960x540: kernel_ms={kernel_ms:.4f},{kernel_ms2:.4f} plain_ms={plain_ms:.4f},"
+        f"{plain_ms2:.4f} (the plain version, F.conv2d + F.max_pool2d on cuDNN, TF32 off, "
+        f"is also the library yardstick: library_ms = plain_ms) candidate sort+threshold "
+        f"{sort_ms:.4f} ms; bound_ms={bound_ms:.5f} "
+        f"({'bytes' if t_bytes >= t_ops else 'operations'}: {nbytes / 1e6:.2f} MB, "
+        f"{ops / 1e9:.3f} GFLOP; {n_taps} taps)")
+    plain = min(plain_ms, plain_ms2)
+    return dict(name="corner_response_nms", route="cuda", source=K2_SOURCE,
+                replaces=K2_REPLACES, launches=0, max_abs_err=max(errs),
+                ms=min(kernel_ms, kernel_ms2), plain_ms=plain, bound_ms=bound_ms,
+                bound_by="bytes" if t_bytes >= t_ops else "operations", library_ms=plain)
+
+
+def intrinsics_phase(torch, mods, times, frames, tmp):
+    """extract_board + the calibrate_camera CLI on the card; checks recovery
+    and returns K2's launches during the run."""
+    board_extractor, checkerboard, kernels, io, cal_cli = mods
+    opts = board_extractor.BoardExtractorOptions(board_type="radon", squares_x=SQUARES[0],
+                                                 squares_y=SQUARES[1])
+    kernels.reset_counts()
+    checkerboard.reset_phase_seconds()
+    t0 = time.perf_counter()
+    ds = board_extractor.extract_board(zip(times, frames), opts, fps=30.0, device="cuda")
+    torch.cuda.synchronize()
+    det_s = time.perf_counter() - t0
+    launches = kernels.corner_response_nms.launches
+    n = len(frames)
+    full = int(ds.valid.all(-1).sum())
+    ph = {k: 1e3 * v / n for k, v in checkerboard.phase_seconds.items()}
+    log(f"[intrinsics] detection {det_s:.2f} s, {1e3 * det_s / n:.2f} ms per frame: kernel + "
+        f"candidate sort {ph['candidates']:.2f} ms, subpixel refinement {ph['refine']:.2f} ms, "
+        f"host lattice {ph['lattice']:.2f} ms; full grid in {full} of {n} frames; "
+        f"corner_response_nms launches {launches}")
+    corners = os.path.join(tmp, "radon_corners.uson")
+    calib_json = os.path.join(tmp, "radon_calib.json")
+    io.save_corners(ds, corners)
+    t0 = time.perf_counter()
+    cal_cli.main(["--input_corners", corners, "--save_path_calib_dataset", calib_json,
+                  "--grid_size", "0.01", "--device", "cuda"])
+    torch.cuda.synchronize()
+    cal_s = time.perf_counter() - t0
+    calib = io.load_camera_calibration(calib_json)
+    with open(calib_json) as f:
+        views = json.load(f)["nr_calib_images"]
+    f_, cx, cy, d = (float(v) for v in calib.params)
+    err = calib.mean_reproj_error
+    log(f"[intrinsics] calibrate_camera CLI {cal_s:.2f} s: f={f_:.4f} cx={cx:.4f} cy={cy:.4f} "
+        f"d={d:.5e} (truth {CAM}), mean reprojection error {err:.4f} px, {views} views")
+    checks = {
+        "full grid in >= 40% of frames": full >= 0.4 * n,
+        ">= 20 active views": views >= 20,
+        "one K2 launch per frame": launches == n,
+        "|f - truth| < 1 px": abs(f_ - CAM[0]) < 1.0,
+        "|cx - truth| < 1.5 px and |cy - truth| < 1.5 px":
+            abs(cx - CAM[1]) < 1.5 and abs(cy - CAM[2]) < 1.5,
+        "|d - truth| < 3% of |truth|": abs(d - CAM[3]) < 0.03 * abs(CAM[3]),
+        "mean reprojection error < 0.15 px": err < 0.15,
+        "finite result": all(math.isfinite(v) for v in (f_, cx, cy, d, err)),
+    }
+    for k, ok in checks.items():
+        log(f"[intrinsics] check {k}: {'ok' if ok else 'FAILED'}")
+    if not all(checks.values()):
+        raise SystemExit("intrinsics path checks failed")
+    return launches
+
+
 def main():
     import torch
 
@@ -166,12 +351,15 @@ def main():
               file=sys.stderr)
         return 2
     sys.path.insert(0, here)
+    from openimucameracalibrator_torch.apps import calibrate_camera as cal_cli
     from openimucameracalibrator_torch.apps import continuous_time_calibration as cli
+    from openimucameracalibrator_torch.core import board_extractor
     from openimucameracalibrator_torch.core import spline_estimator as se
+    from openimucameracalibrator_torch.detect import checkerboard, kernels, render
     from openimucameracalibrator_torch.models import cameras
     from openimucameracalibrator_torch.ops import lie
     from openimucameracalibrator_torch.solver import gram
-    from openimucameracalibrator_torch.utils import io, precision, synthetic
+    from openimucameracalibrator_torch.utils import io, precision, recorded, synthetic
 
     t_start = time.perf_counter()
     device = precision.resolve_device("cuda")  # also turns TF32 off
@@ -180,11 +368,7 @@ def main():
     log(f"[device] {name}; nvidia-smi: {smi}; torch {torch.__version__} "
         f"cuda {torch.version.cuda}; tf32 matmul {torch.backends.cuda.matmul.allow_tf32}")
 
-    lib = gram.build()
-    log(f"[build] {lib.path} in {lib.build_seconds:.2f} s")
-    for line in lib.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build] ptxas: {line.strip()}")
+    build_kernels(gram, kernels)
 
     tmp = tempfile.mkdtemp(prefix="oicc_chip_smoke_")
     t0 = time.perf_counter()
@@ -273,10 +457,15 @@ def main():
     lin_ms = cuda_ms(lambda: lin(params0), warm=2, reps=5)
     log(f"[main] linearize {lin_ms:.2f} ms (CUDA events, mean of 5, D={D})")
 
+    times, frames = render_phase(torch, recorded, render, synthetic, device)
+    k2_row = k2_phase(torch, kernels, frames[0])
+    k2_row["launches"] = intrinsics_phase(
+        torch, (board_extractor, checkerboard, kernels, io, cal_cli), times, frames, tmp)
 
     shutil.rmtree(tmp, ignore_errors=True)
     for row in rows:
         row.pop("tag")
+    rows.append(k2_row)
     log(json.dumps({"kernels": rows}))
     log(f"[done] {time.perf_counter() - t_start:.1f} s on {name}")
     log(smi)

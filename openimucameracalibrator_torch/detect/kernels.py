@@ -1,0 +1,174 @@
+"""Fused checkerboard corner response + NMS: plain version and CUDA kernel.
+
+Counterpart of ``detect/pallas_kernels.py`` of the JAX package (kernel K2
+of the port). :func:`corner_response_nms` returns, for a frame, the
+corner-likelihood map of ``image.corner_response`` and the mask of its
+local maxima over a (2n+1)^2 window, in one pass:
+
+* on a CUDA tensor it launches the hand-written kernel
+  ``csrc/corner_nms.cu`` (built with ``nvcc`` for ``sm_90a`` at first use
+  by ``utils/native.py``, loaded with ``ctypes``), or raises;
+* :func:`corner_response_nms_plain` is the plain version (``F.conv2d``
+  with the 8 quadrant kernels, the response reduction, ``F.max_pool2d``),
+  which serves CPU tensors and is what the kernel is held against.
+
+:func:`find_corner_candidates_kernel` (the counterpart of
+``find_corner_candidates_pallas``) thresholds and takes the top K outside
+the kernel, with a stable sort so that equal scores keep the lower flat
+index first, as ``jax.lax.top_k`` does.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from openimucameracalibrator_torch.detect import image as image_mod
+from openimucameracalibrator_torch.utils import native
+
+
+def _tap_tables(radius: int):
+    """(dys, dxs, ws) each (8, Kmax): nonzero taps of the 8 quadrant
+    kernels (2 prototypes x 4 quadrants), zero-weight padded to a common
+    length so the kernel's tap loop has one trip count."""
+    bank = image_mod._prototype_bank(radius)  # (2, 4, s, s)
+    quads = []
+    for p in range(2):
+        for q in range(4):
+            k = bank[p, q]
+            ys, xs = np.nonzero(k)
+            quads.append([(int(y), int(x), float(k[y, x]))
+                          for y, x in zip(ys, xs)])
+    kmax = max(len(q) for q in quads)
+    dys = np.zeros((8, kmax), np.int32)
+    dxs = np.zeros((8, kmax), np.int32)
+    ws = np.zeros((8, kmax), np.float32)
+    for i, q in enumerate(quads):
+        for j, (dy, dx, w) in enumerate(q):
+            dys[i, j], dxs[i, j], ws[i, j] = dy, dx, w
+    return dys, dxs, ws
+
+
+# ---------------------------------------------------------------------------
+# Plain version
+# ---------------------------------------------------------------------------
+
+def _response_from_quadrants(out: torch.Tensor) -> torch.Tensor:
+    """(8, H, W) quadrant correlations -> (H, W) response, clamped >= 0."""
+    resp = None
+    for p in range(2):
+        a, b, c, d = out[4 * p], out[4 * p + 1], out[4 * p + 2], out[4 * p + 3]
+        mu = 0.25 * (a + b + c + d)
+        r1 = torch.minimum(torch.minimum(a, b) - mu, mu - torch.maximum(c, d))
+        r2 = torch.minimum(mu - torch.maximum(a, b), torch.minimum(c, d) - mu)
+        r = torch.maximum(r1, r2)
+        resp = r if resp is None else torch.maximum(resp, r)
+    return torch.clamp(resp, min=0.0)
+
+
+def corner_response_nms_plain(img: torch.Tensor, radius: int = 6, nms_radius: int = 4):
+    """Plain PyTorch version of :func:`corner_response_nms`, any device:
+    ``(resp (H, W) f32, keep (H, W) f32)``."""
+    bank = torch.as_tensor(image_mod._prototype_bank(radius), device=img.device)
+    k = bank.reshape(8, 1, bank.shape[-2], bank.shape[-1])
+    out = F.conv2d(img.to(torch.float32)[None, None], k, padding=radius)[0]
+    resp = _response_from_quadrants(out)
+    n = nms_radius
+    local_max = F.max_pool2d(resp[None, None], 2 * n + 1, stride=1, padding=n)[0, 0]
+    return resp, (resp >= local_max).to(torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernel
+# ---------------------------------------------------------------------------
+
+_SYMBOLS = {
+    "oicc_corner_nms_f32": ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+                            ctypes.c_int),
+    "oicc_corner_nms_smem_bytes": ([ctypes.c_int] * 3, ctypes.c_longlong),
+}
+_MAX_SMEM = 232448  # bytes of shared memory one block may use on Hopper
+
+
+def build() -> native.Library:
+    """Compile ``csrc/corner_nms.cu`` (once per source hash) and load it."""
+    return native.build("corner_nms.cu", _SYMBOLS)
+
+
+@functools.lru_cache(maxsize=None)
+def _device_taps(radius: int, device: str):
+    dys, dxs, ws = _tap_tables(radius)
+    return (torch.as_tensor(dys, device=device), torch.as_tensor(dxs, device=device),
+            torch.as_tensor(ws, device=device))
+
+
+def corner_response_nms(img: torch.Tensor, radius: int = 6, nms_radius: int = 4):
+    """``(resp (H, W) f32, keep (H, W) f32)``: the corner response and its
+    (2n+1)^2 local-max mask, from the CUDA kernel.
+
+    ``img`` must be a contiguous 2-D float32 CUDA tensor; anything else
+    raises. Each launch adds one to ``corner_response_nms.launches``.
+    """
+    if img.device.type != "cuda":
+        raise ValueError(f"corner_response_nms: needs a CUDA tensor, got {img.device} "
+                         "(use corner_response_nms_plain on the CPU)")
+    if img.dtype != torch.float32 or img.dim() != 2:
+        raise ValueError(f"corner_response_nms: img must be a 2-D float32 tensor, "
+                         f"got {img.dtype} {tuple(img.shape)}")
+    if not img.is_contiguous():
+        raise ValueError("corner_response_nms: img must be contiguous")
+    lib = build()
+    dys, dxs, ws = _device_taps(int(radius), str(img.device))
+    kmax = dys.shape[1]
+    if lib.lib.oicc_corner_nms_smem_bytes(kmax, int(radius), int(nms_radius)) > _MAX_SMEM:
+        raise ValueError(f"corner_response_nms: radius {radius} / nms_radius {nms_radius} "
+                         "need more shared memory than a block has")
+    H, W = img.shape
+    resp = torch.empty_like(img)
+    keep = torch.empty_like(img)
+    with torch.cuda.device(img.device):
+        stream = torch.cuda.current_stream(img.device).cuda_stream
+    err = lib.lib.oicc_corner_nms_f32(img.data_ptr(), dys.data_ptr(), dxs.data_ptr(),
+                                      ws.data_ptr(), resp.data_ptr(), keep.data_ptr(),
+                                      H, W, kmax, int(radius), int(nms_radius), stream)
+    native.check(lib, err, "corner_response_nms")
+    corner_response_nms.launches += 1
+    return resp, keep
+
+
+corner_response_nms.launches = 0
+
+
+def reset_counts():
+    corner_response_nms.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Candidates
+# ---------------------------------------------------------------------------
+
+def top_candidates(resp: torch.Tensor, keep: torch.Tensor, max_corners: int,
+                   rel_threshold: float):
+    """(xy (K, 2) f32, score (K,)): local maxima above ``rel_threshold``
+    times the largest response, best first; equal scores lower flat index
+    first; score 0 for empty slots."""
+    thr = rel_threshold * torch.max(resp)
+    flat = torch.where((keep > 0) & (resp > thr), resp, torch.zeros_like(resp)).reshape(-1)
+    scores, idx = torch.sort(flat, descending=True, stable=True)
+    scores, idx = scores[:max_corners], idx[:max_corners]
+    w = resp.shape[1]
+    xs = (idx % w).to(torch.float32)
+    ys = (idx // w).to(torch.float32)
+    return torch.stack([xs, ys], dim=-1), scores
+
+
+def find_corner_candidates_kernel(img: torch.Tensor, max_corners: int = 512,
+                                  nms_radius: int = 4, rel_threshold: float = 0.05,
+                                  response_radius: int = 6):
+    """``image.find_corner_candidates`` through the CUDA kernel."""
+    resp, keep = corner_response_nms(img, response_radius, nms_radius)
+    return top_candidates(resp, keep, max_corners, rel_threshold)

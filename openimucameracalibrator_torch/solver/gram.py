@@ -15,26 +15,18 @@ On a CUDA tensor the wrapper launches the hand-written kernel
 with ``ctypes``); on a CPU tensor it computes the plain version
 (:func:`_densify_segments` then ``Dᵀ D``), which is also what the kernel
 is held against on the card. There is no fallback from one to the other.
+The build itself is ``utils/native.py``.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import time
 
 import numpy as np
 import torch
 
-_CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
-_SOURCE = os.path.join(_CSRC, "gram.cu")
-BUILD_DIR = os.path.join(_CSRC, "build")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+from openimucameracalibrator_torch.utils import native
 
 
 # ---------------------------------------------------------------------------
@@ -105,47 +97,13 @@ def fused_gram_plain(J, r, idx, segments, L):
 # CUDA kernel
 # ---------------------------------------------------------------------------
 
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"),
-                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the fused Gram kernel is built with nvcc "
-                       "(set CUDA_HOME or put nvcc on PATH)")
+_SYMBOLS = {"oicc_fused_gram_f32": ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+                                    ctypes.c_int)}
 
 
-class _Library:
-    lib = None
-    path = ""
-    build_seconds = 0.0
-    build_log = ""
-
-
-def build() -> _Library:
+def build() -> native.Library:
     """Compile ``csrc/gram.cu`` (once per source hash) and load it."""
-    if _Library.lib is not None:
-        return _Library
-    with open(_SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    path = os.path.join(BUILD_DIR, f"libgram_{digest}.so")
-    t0 = time.perf_counter()
-    if not os.path.exists(path):
-        tmp = f"{path}.{os.getpid()}.tmp"
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, _SOURCE],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed building {_SOURCE}:\n{proc.stderr}")
-        os.replace(tmp, path)
-        _Library.build_log = proc.stderr
-    lib = ctypes.CDLL(path)
-    lib.oicc_fused_gram_f32.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    lib.oicc_fused_gram_f32.restype = ctypes.c_int
-    lib.oicc_error_string.argtypes = [ctypes.c_int]
-    lib.oicc_error_string.restype = ctypes.c_char_p
-    _Library.lib, _Library.path = lib, path
-    _Library.build_seconds = time.perf_counter() - t0
-    return _Library
+    return native.build("gram.cu", _SYMBOLS)
 
 
 @functools.lru_cache(maxsize=None)
@@ -195,17 +153,16 @@ def fused_gram(J, r, idx, segments, L: int, tag: str | None = None):
     _check("J", J, torch.float32, (K, R, F), dev)
     _check("r", r, torch.float32, (K, R), dev)
     _check("idx", idx, torch.int32, (n_run, K, R), dev)
-    lib = build().lib
+    lib = build()
     tab = _coltab(tuple(segments), int(L), str(dev))
     H = torch.empty((K, L, L), dtype=torch.float32, device=dev)
     g = torch.empty((K, L), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.oicc_fused_gram_f32(J.data_ptr(), r.data_ptr(), idx.data_ptr(), tab.data_ptr(),
-                                  H.data_ptr(), g.data_ptr(), K, R, F, int(L), n_run, stream)
-    if err != 0:
-        raise RuntimeError("fused_gram kernel launch failed: "
-                           + lib.oicc_error_string(err).decode())
+    err = lib.lib.oicc_fused_gram_f32(J.data_ptr(), r.data_ptr(), idx.data_ptr(),
+                                      tab.data_ptr(), H.data_ptr(), g.data_ptr(),
+                                      K, R, F, int(L), n_run, stream)
+    native.check(lib, err, "fused_gram")
     fused_gram.launches += 1
     if tag is not None:
         fused_gram.launches_by_tag[tag] = fused_gram.launches_by_tag.get(tag, 0) + 1

@@ -25,6 +25,7 @@ import time
 from typing import Callable, NamedTuple
 
 import torch
+from torch.func import jacfwd
 
 
 class LMConfig(NamedTuple):
@@ -237,3 +238,38 @@ def _lm_optimize_fused(
         status = STATUS_NO_PROGRESS
     return LMResult(params, cost, it, lam, status == STATUS_CONVERGED,
                     status, hist, time.perf_counter() - t_start, it + 1)
+
+
+def make_dense_linearizer(residual_fn: Callable, layout, weight_fn: Callable | None = None):
+    """Build (linearize_fn, cost_fn, retract_fn) from a flat residual function.
+
+    ``residual_fn(params) -> (M,)`` whitened residuals. ``weight_fn(r) ->
+    (M,)`` optional IRLS sqrt-weights (see robust.huber_sqrt_weights),
+    recomputed each outer iteration and held constant during the step
+    (computed outside the transform and detached). The Jacobian comes
+    from ``torch.func.jacfwd`` over the tangent delta: suitable for
+    tangent dims up to a few thousand.
+    """
+    def weighted_residual(params):
+        r = residual_fn(params)
+        if weight_fn is not None:
+            r = r * weight_fn(r).detach()
+        return r
+
+    def cost_fn(params):
+        r = weighted_residual(params)
+        return 0.5 * torch.sum(r * r)
+
+    def linearize_fn(params):
+        r = residual_fn(params)
+        w = (weight_fn(r) if weight_fn is not None else torch.ones_like(r)).detach()
+
+        def r_of_delta(delta):
+            return residual_fn(layout.retract(params, delta)) * w
+
+        delta0 = torch.zeros((layout.tangent_dim,), dtype=r.dtype, device=r.device)
+        J = jacfwd(r_of_delta)(delta0)  # (M, D)
+        rw = r * w
+        return J.T @ J, J.T @ rw, 0.5 * torch.sum(rw * rw)
+
+    return linearize_fn, cost_fn, layout.retract

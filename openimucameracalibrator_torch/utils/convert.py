@@ -1,7 +1,7 @@
 """Carry parameters and problems across from the JAX package as numpy.
 
-The JAX package's spline parameter dict and ``SplineProblem`` fields,
-given as numpy arrays (``{k: np.asarray(v)}``), become the port's tensors
+The JAX package's spline parameter dict, ``SplineProblem`` fields and the
+camera calibrator's parameter dict, given as numpy arrays (``{k: np.asarray(v)}``), become the port's tensors
 and back, so that both packages compute from the same state. This module
 imports nothing of the JAX package: the caller converts to numpy.
 """
@@ -55,3 +55,22 @@ def problem_from_numpy(fields: dict, device=None, dtype=None) -> se.SplineProble
         else:
             out[k] = torch.as_tensor(a, dtype=dtype, device=device)
     return se.SplineProblem(**out)
+
+
+BA_PARAM_KEYS = ("cam", "q_cw", "t_cw", "pts")
+
+
+def ba_params_from_numpy(d: dict, device=None, dtype=None) -> dict:
+    """Camera-calibrator parameter dict (``cam``, ``q_cw``, ``t_cw``,
+    ``pts``) of numpy arrays -> dict of tensors."""
+    device = precision.resolve_device(device)
+    dtype = precision.resolve(dtype, device)
+    if set(d) != set(BA_PARAM_KEYS):
+        raise KeyError(f"calibrator parameters must be {BA_PARAM_KEYS}, got {sorted(d)}")
+    return {k: torch.as_tensor(np.array(d[k]), dtype=dtype, device=device)
+            for k in BA_PARAM_KEYS}
+
+
+def ba_params_to_numpy(params: dict) -> dict:
+    """Camera-calibrator parameter dict of tensors -> float64 numpy arrays."""
+    return params_to_numpy({k: params[k] for k in BA_PARAM_KEYS})

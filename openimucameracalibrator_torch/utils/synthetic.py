@@ -118,6 +118,32 @@ def render_view(model: CameraModel, cam_params, board_pts, q_w_c, t_w_c, image_s
     return uv, ok & inside & (p_cam[..., 2] > 0.05)
 
 
+def make_intrinsics_scene(model: CameraModel, cam_params, *, num_views: int = 40,
+                          image_size=(960, 540), noise_px: float = 0.2, seed: int = 0,
+                          board: boards_mod.Board | None = None,
+                          device=None) -> SyntheticScene:
+    """Static board + moving camera: intrinsics-calibration test scene,
+    rendered on ``device`` (default ``"cuda"``) in float64."""
+    device = precision.resolve_device(device)
+    board = board or boards_mod.charuco_board()
+
+    def T(x):
+        return torch.as_tensor(np.asarray(x, np.float64), device=device)
+
+    pose_fn = sinusoid_trajectory(np.random.default_rng(seed), duration=float(num_views),
+                                  device=device)
+    times = np.linspace(0.0, 1.0 / 0.4 * 0.9, num_views)  # cover most of a period
+    qs, ps = pose_fn(T(times))
+    uv, valid = render_view(model, T(cam_params), T(board.points), qs, ps, image_size)
+    noise = np.random.default_rng(seed + 1).normal(size=tuple(uv.shape)) * noise_px
+    uv = uv.cpu().numpy() + noise
+    return SyntheticScene(
+        board=board, cam_params=np.asarray(cam_params, np.float64), model=model,
+        image_size=image_size, frame_times=times,
+        q_w_c=qs.cpu().numpy(), t_w_c=ps.cpu().numpy(),
+        observations=uv, obs_valid=valid.cpu().numpy(), pose_fn=pose_fn)
+
+
 def make_imu_camera_scene(model: CameraModel, cam_params, *, duration: float = 20.0,
                           cam_fps: float = 30.0, imu_rate: float = 200.0,
                           image_size=(960, 540), noise_px: float = 0.2,

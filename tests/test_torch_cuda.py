@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from openimucameracalibrator_torch.detect import image, kernels, render
 from openimucameracalibrator_torch.solver import gram
 
 
@@ -60,3 +61,35 @@ def test_cuda_kernel_matches_plain(cuda_device):
     assert (g - gp).abs().max().item() <= tol * gp.abs().max().item()
     with pytest.raises(ValueError):
         gram.fused_gram(Jt.double(), rt, idx, segs, L)
+
+
+@pytest.mark.cuda
+def test_cuda_corner_kernel_matches_plain(cuda_device):
+    """K2 against its plain version on the card at 960x540, float32, TF32
+    off for cuDNN: resp within 2e-5 of max|resp|; keep on >= 0.999 of the
+    pixels and exactly where |resp - local max| > 1e-4 of max|resp|; the
+    candidate lists hold the same points."""
+    torch.backends.cudnn.allow_tf32 = False
+    board = render.render_checkerboard(10, 8, 48, 24).astype(np.float32)
+    img = np.full((540, 960), 170.0, np.float32)
+    img[40:40 + board.shape[0], 100:100 + board.shape[1]] = board
+    img += np.random.default_rng(7).normal(0.0, 1.5, img.shape).astype(np.float32)
+    x = torch.as_tensor(img, device=cuda_device)
+    before = kernels.corner_response_nms.launches
+    resp, keep = kernels.corner_response_nms(x)
+    assert kernels.corner_response_nms.launches == before + 1
+    resp_p, keep_p = kernels.corner_response_nms_plain(x)
+    scale = resp_p.abs().max().item()
+    assert (resp - resp_p).abs().max().item() <= 2e-5 * scale
+    local_max = torch.nn.functional.max_pool2d(resp_p[None, None], 9, 1, 4)[0, 0]
+    agree = (keep == keep_p).float().mean().item()
+    clear = (resp_p - local_max).abs() > 1e-4 * scale
+    assert agree >= 0.999 and torch.equal(keep[clear], keep_p[clear])
+    xy, s = image.find_corner_candidates(x)
+    xy_p, s_p = kernels.top_candidates(resp_p, keep_p, 512, 0.05)
+    n = int((s_p > 0).sum())
+    assert n >= 63 and int((s > 0).sum()) == n
+    assert {tuple(p) for p in xy[:n].tolist()} == {tuple(p) for p in xy_p[:n].tolist()}
+    for bad in (x.double(), x[None], x.t()):
+        with pytest.raises(ValueError):
+            kernels.corner_response_nms(bad)

@@ -160,3 +160,34 @@ def test_entry_points_default_to_cuda(tmp_path):
                     "--input_pose_dataset", "x", "--telemetry_json", "x",
                     "--imu_rotation_init", "x", "--spline_weighting_json", "x",
                     "--output_path", "x", "--num_processes", "2", "--device", "cpu"])
+
+    # The intrinsics slice: extract_board, calibrate_camera, both CLIs,
+    # render_frames, make_intrinsics_scene and detect_checkerboard.
+    from openimucameracalibrator_torch.apps import calibrate_camera as cal_cli
+    from openimucameracalibrator_torch.apps import extract_board as ext_cli
+    from openimucameracalibrator_torch.core import board_extractor, camera_calibrator
+    from openimucameracalibrator_torch.detect import checkerboard, render
+    from openimucameracalibrator_torch.utils import recorded
+
+    frame = render.render_checkerboard(8, 6, 50, 25)
+    opts = board_extractor.BoardExtractorOptions(board_type="radon", squares_x=8, squares_y=6)
+    tex = recorded.BoardTexture(frame, 50, 25, 0.04)
+    calls = [
+        lambda: board_extractor.extract_board([(0.0, frame)], opts),
+        lambda: camera_calibrator.calibrate_camera(corners, "pinhole"),
+        lambda: cal_cli.main(["--input_corners", "x", "--save_path_calib_dataset", "x"]),
+        lambda: ext_cli.main(["--input_path", str(tmp_path), "--board_type", "radon",
+                              "--save_corners_to_path", str(tmp_path / "c.uson")]),
+        lambda: recorded.render_frames(lambda t: None, [0.0], "pinhole", [400.0, 400, 80, 60],
+                                       [1.0, 0, 0, 0], [0.0, 0, 0], tex, (160, 120)),
+        lambda: synthetic.make_intrinsics_scene(cameras.get_model("pinhole"),
+                                                [400.0, 400, 480, 270]),
+        lambda: checkerboard.detect_checkerboard(frame, 8, 6),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    for bt in ("charuco", "apriltag"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            board_extractor.extract_board([(0.0, frame)], board_extractor.BoardExtractorOptions(
+                board_type=bt), device="cpu")
