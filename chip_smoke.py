@@ -13,8 +13,12 @@ Phases (every failure exits non-zero; nothing is caught and carried on):
                960x540 division-undistortion camera, rolling shutter,
                charuco 10x8) rendered on the card, and its stage-8 input
                artifacts written to a temporary directory.
-4. K1        — the Gram kernel against its plain PyTorch version at the
-               three family shapes of that recording's chunk plan, with times.
+4. K1        — the Gram kernel against its plain PyTorch version for the
+               three families of that recording's chunk plan, on uniformly
+               random block indices and on the linearizer's own inputs at
+               the initial point (the main path's time-sorted indices,
+               caught by a spy on gram.fused_gram); two launches must give
+               the same bits; with times.
 5. stage 8   — the port's stage-8 CLI on those artifacts on the card, with
                its default iteration caps; recovery of the truth, and the
                K1 launches counted during the run; then the time of one
@@ -25,7 +29,8 @@ Phases (every failure exits non-zero; nothing is caught and carried on):
                1.5 DN noise).
 7. K2        — the corner kernel against its plain PyTorch version on one of
                those frames and on one random frame: response, local-max
-               mask, candidate lists; with times.
+               mask, candidate lists; on that frame at radius 5 (the generic
+               instantiation) too; with times.
 8. intrinsics — the radon path on the card: extract_board on the 300 frames,
                the corner file, the calibrate_camera CLI; recovery of the
                camera, and one K2 launch per frame.
@@ -100,6 +105,34 @@ def cuda_ms(fn, warm=3, reps=20):
     return a.elapsed_time(b) / reps
 
 
+def graph_ms(fn, reps=20):
+    """Device ms of one fn() call: reps calls captured in one CUDA graph,
+    replayed and timed with CUDA events, so the host's launch gaps between
+    calls drop out (what the card spends, not what the Python wrapper
+    costs)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    graph.replay()
+    b.record()
+    torch.cuda.synchronize()
+    del graph
+    return a.elapsed_time(b) / reps
+
+
 def family_shapes(se, problem):
     """(name, K, R, rd, F, segments, L) per family of the DS3 chunk plan, as
     the linearizer hands them to the kernel; and the tangent dimension."""
@@ -110,8 +143,97 @@ def family_shapes(se, problem):
     return out, se.build_layout(problem).tangent_dim
 
 
-def kernel_phase(gram, shapes):
-    """Kernel vs plain version at each family shape; returns per-family rows."""
+def capture_linearizer_inputs(gram, lin, params):
+    """{family: (J, r, idx)}: what the linearizer hands the Gram kernel at
+    ``params``, caught by swapping ``gram.fused_gram`` for a spy that
+    answers with the plain version (so nothing launches the kernel)."""
+    captured = {}
+    real = gram.fused_gram
+
+    def spy(J, r, idx, segs, L, tag=None):
+        captured[tag] = (J.clone(), r.clone(), idx.clone())
+        return gram.fused_gram_plain(J, r, idx, segs, L)
+
+    gram.fused_gram = spy
+    try:
+        lin(params)
+    finally:
+        gram.fused_gram = real
+    return captured
+
+
+def _random_idx(gen, K, R, rd, segs):
+    """Uniformly random run indices, one per measurement of rd rows: no
+    locality at all: K1's skip of D's zero blocks finds nothing to skip."""
+    import torch
+
+    idx = []
+    for s in segs:
+        if s[0] == "run":
+            _, _, nblk, _, wblk, _ = s
+            m = torch.randint(0, wblk - nblk + 1, (K, R // rd), generator=gen, device="cuda")
+            idx.append(m.repeat_interleave(rd, dim=1))
+    return torch.stack(idx).to(torch.int32).contiguous()
+
+
+def check_gram(gram, name, J, r, idx, segs, L):
+    """The kernel against its plain version on one input: returns max abs
+    error; exits unless it is within tolerance and two launches agree bit
+    for bit."""
+    import torch
+
+    K, R, F = J.shape
+    H, g = gram.fused_gram(J, r, idx, segs, L)
+    H2, g2 = gram.fused_gram(J, r, idx, segs, L)
+    torch.cuda.synchronize()
+    same_bits = bool(torch.equal(H, H2) and torch.equal(g, g2))
+    Hp, gp = gram.fused_gram_plain(J, r, idx, segs, L)
+    err_h = (H - Hp).abs().max().item()
+    err_g = (g - gp).abs().max().item()
+    scale_h, scale_g = Hp.abs().max().item(), gp.abs().max().item()
+    # fp32 rounding of an R-term sum, scaled by the largest entry.
+    tol = 8.0 * math.sqrt(R) * torch.finfo(torch.float32).eps
+    rel_h, rel_g = err_h / scale_h, err_g / scale_g
+    log(f"kernel[{name}] K={K} R={R} F={F} L={L} n_run={idx.shape[0]}: "
+        f"H max_abs_err={err_h:.3e} rel={rel_h:.3e}, g max_abs_err={err_g:.3e} "
+        f"rel={rel_g:.3e} (tolerance rel {tol:.3e}); two launches bit-identical: {same_bits}")
+    if not (rel_h <= tol and rel_g <= tol and math.isfinite(err_h) and math.isfinite(err_g)
+            and same_bits):
+        raise SystemExit(f"kernel[{name}] disagrees with its plain version")
+    return max(err_h, err_g)
+
+
+def time_gram(gram, J, r, idx, segs, L):
+    """(kernel device ms, kernel ms per eager call, plain ms, library ms), in
+    turns plain, kernel, kernel, library, plain; the kernel's device time
+    comes from a CUDA graph of 20 calls (graph_ms), every other time from
+    back-to-back eager calls (cuda_ms, the kernels line's ``ms`` since the
+    port began); the kernel and the plain version keep their best."""
+    import torch
+
+    def library():
+        D, rf = gram._densify_segments(r[:, :, None], J[:, :, None, :],
+                                       gram._per_row_segments(segs, idx), L)
+        return torch.bmm(D.transpose(1, 2), D), torch.bmm(D.transpose(1, 2), rf[..., None])
+
+    def kernel():
+        return gram.fused_gram(J, r, idx, segs, L)
+
+    plain_ms = cuda_ms(lambda: gram.fused_gram_plain(J, r, idx, segs, L))
+    device_ms, eager_ms = graph_ms(kernel), cuda_ms(kernel)
+    device_ms2, eager_ms2 = graph_ms(kernel), cuda_ms(kernel)
+    library_ms = cuda_ms(library)
+    plain_ms2 = cuda_ms(lambda: gram.fused_gram_plain(J, r, idx, segs, L))
+    torch.cuda.empty_cache()
+    return (min(device_ms, device_ms2), min(eager_ms, eager_ms2), min(plain_ms, plain_ms2),
+            library_ms)
+
+
+def kernel_phase(gram, shapes, captured):
+    """K1 against its plain version at each family, on uniformly random idx
+    (nothing to skip) and on the linearizer's own inputs at the initial
+    point (the main path's idx); returns per-family rows, timed on the
+    main path's inputs."""
     import torch
 
     rows = []
@@ -119,61 +241,42 @@ def kernel_phase(gram, shapes):
     for name, K, R, rd, F, segs, L in shapes:
         J = torch.randn((K, R, F), generator=gen, device="cuda")
         r = torch.randn((K, R), generator=gen, device="cuda")
-        idx = []
-        for s in segs:
-            if s[0] == "run":
-                _, _, nblk, _, wblk, _ = s
-                m = torch.randint(0, wblk - nblk + 1, (K, R // rd), generator=gen, device="cuda")
-                idx.append(m.repeat_interleave(rd, dim=1))
-        idx = torch.stack(idx).to(torch.int32).contiguous()
-        n_run = idx.shape[0]
+        idx = _random_idx(gen, K, R, rd, segs)
+        err_rand = check_gram(gram, f"{name}, random idx", J, r, idx, segs, L)
+        rand_device_ms, rand_ms, rand_plain_ms, rand_library_ms = time_gram(gram, J, r, idx,
+                                                                            segs, L)
+        del J, r, idx
 
-        H, g = gram.fused_gram(J, r, idx, segs, L)
-        torch.cuda.synchronize()
-        Hp, gp = gram.fused_gram_plain(J, r, idx, segs, L)
-        err_h = (H - Hp).abs().max().item()
-        err_g = (g - gp).abs().max().item()
-        scale_h, scale_g = Hp.abs().max().item(), gp.abs().max().item()
-        # fp32 rounding of an R-term sum, scaled by the largest entry.
-        tol = 8.0 * math.sqrt(R) * torch.finfo(torch.float32).eps
-        rel_h, rel_g = err_h / scale_h, err_g / scale_g
-        log(f"kernel[{name}] K={K} R={R} F={F} L={L} n_run={n_run}: "
-            f"H max_abs_err={err_h:.3e} rel={rel_h:.3e}, g max_abs_err={err_g:.3e} "
-            f"rel={rel_g:.3e} (tolerance rel {tol:.3e})")
-        if not (rel_h <= tol and rel_g <= tol and math.isfinite(err_h) and math.isfinite(err_g)):
-            raise SystemExit(f"kernel[{name}] disagrees with its plain version")
-
-        def library():
-            D, rf = gram._densify_segments(r[:, :, None], J[:, :, None, :],
-                                           gram._per_row_segments(segs, idx), L)
-            return torch.bmm(D.transpose(1, 2), D), torch.bmm(D.transpose(1, 2), rf[..., None])
-
-        plain_ms = cuda_ms(lambda: gram.fused_gram_plain(J, r, idx, segs, L))
-        kernel_ms = cuda_ms(lambda: gram.fused_gram(J, r, idx, segs, L))
-        kernel_ms2 = cuda_ms(lambda: gram.fused_gram(J, r, idx, segs, L))
-        library_ms = cuda_ms(library)
-        plain_ms2 = cuda_ms(lambda: gram.fused_gram_plain(J, r, idx, segs, L))
+        J, r, idx = captured[name]
+        assert tuple(J.shape) == (K, R, F), (name, tuple(J.shape), (K, R, F))
+        err_main = check_gram(gram, f"{name}, main-path idx", J, r, idx, segs, L)
+        device_ms, kernel_ms, plain_ms, library_ms = time_gram(gram, J, r, idx, segs, L)
         # Least time for the same work: each input read once, each output
         # written once; the operations this data needs (F nonzeros per row
         # of D: the upper triangle of each row's outer product, plus g).
+        n_run = idx.shape[0]
         nbytes = K * R * (F + 1 + n_run) * 4 + K * (L * L + L) * 4
         ops = K * R * (F * (F + 1) + 2 * F)
         dense_ops = 2 * K * R * L * L
         t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, ops / FP32_FLOP_S * 1e3
         bound_ms = max(t_bytes, t_ops)
-        log(f"kernel[{name}] kernel_ms={kernel_ms:.4f},{kernel_ms2:.4f} "
-            f"plain_ms={plain_ms:.4f},{plain_ms2:.4f} library_ms={library_ms:.4f} "
+        log(f"kernel[{name}] main-path idx: kernel_ms={kernel_ms:.4f} (per eager call; "
+            f"{device_ms:.4f} device) plain_ms={plain_ms:.4f} "
+            f"library_ms={library_ms:.4f}; random idx: kernel_ms={rand_ms:.4f} (per eager "
+            f"call; {rand_device_ms:.4f} device) plain_ms={rand_plain_ms:.4f} "
+            f"library_ms={rand_library_ms:.4f}; "
             f"bound_ms={bound_ms:.5f} ({'bytes' if t_bytes >= t_ops else 'operations'}: "
-            f"{nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP) "
+            f"{nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP; share "
+            f"{100 * bound_ms / kernel_ms:.2f} % of the eager time, "
+            f"{100 * bound_ms / device_ms:.2f} % of the device time) "
             f"dense_bound_ms={dense_ops / FP32_FLOP_S * 1e3:.4f} ({dense_ops / 1e9:.2f} GFLOP)")
         rows.append(dict(name=f"fused_gram[{name}]", route="cuda", source=SOURCE,
-                         replaces=REPLACES, launches=0,
-                         max_abs_err=max(err_h, err_g),
-                         ms=min(kernel_ms, kernel_ms2), plain_ms=min(plain_ms, plain_ms2),
-                         bound_ms=bound_ms,
+                         replaces=REPLACES, launches=0, max_abs_err=max(err_rand, err_main),
+                         ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
                          bound_by="bytes" if t_bytes >= t_ops else "operations",
-                         library_ms=library_ms, tag=name))
-        del J, r, idx, H, g, Hp, gp
+                         library_ms=library_ms, ms_device=device_ms, ms_random_idx=rand_ms,
+                         ms_device_random_idx=rand_device_ms,
+                         plain_ms_random_idx=rand_plain_ms, tag=name))
         torch.cuda.empty_cache()
     return rows
 
@@ -235,55 +338,84 @@ def k2_phase(torch, kernels, frame):
     inputs = {"rendered": torch.as_tensor(frame.astype(np.float32), device="cuda"),
               "random": 255.0 * torch.rand((540, 960), generator=gen, device="cuda")}
     errs, ok = [], True
-    for name, x in inputs.items():
-        resp, keep = kernels.corner_response_nms(x)
+    # (6, 4) is what every caller passes; (5, 3) runs the generic instantiation.
+    cases = [(name, x, 6, 4) for name, x in inputs.items()]
+    cases.append(("rendered, generic instantiation", inputs["rendered"], 5, 3))
+    for name, x, radius, nms in cases:
+        resp, keep = kernels.corner_response_nms(x, radius, nms)
         torch.cuda.synchronize()
-        resp_p, keep_p = kernels.corner_response_nms_plain(x)
+        resp_p, keep_p = kernels.corner_response_nms_plain(x, radius, nms)
         scale = resp_p.abs().max().item()
         err = (resp - resp_p).abs().max().item()
-        local_max = torch.nn.functional.max_pool2d(resp_p[None, None], 9, 1, 4)[0, 0]
+        local_max = torch.nn.functional.max_pool2d(resp_p[None, None], 2 * nms + 1, 1,
+                                                   nms)[0, 0]
         agree = (keep == keep_p).float().mean().item()
         clear = (resp_p - local_max).abs() > 1e-4 * scale
         exact = bool(torch.equal(keep[clear], keep_p[clear]))
-        log(f"[K2] {name}: resp max_abs_err={err:.3e} (tolerance {2e-5 * scale:.3e} = "
-            f"2e-5 * max|resp|), keep agreement {agree:.6f} (>= 0.999), exact where "
-            f"|resp - local max| > 1e-4 * max|resp|: {exact}")
-        cand = kernels.find_corner_candidates_kernel(x)
-        cand_p = kernels.top_candidates(resp_p, keep_p, 512, 0.05)
-        ok &= (err <= 2e-5 * scale and math.isfinite(err) and agree >= 0.999 and exact
-               and _same_candidates(name, *cand, *cand_p, scale))
-        errs.append(err)
+        log(f"[K2] {name} (radius {radius}, nms {nms}): resp max_abs_err={err:.3e} "
+            f"(tolerance {2e-5 * scale:.3e} = 2e-5 * max|resp|), keep agreement {agree:.6f} "
+            f"(>= 0.999), exact where |resp - local max| > 1e-4 * max|resp|: {exact}")
+        ok &= err <= 2e-5 * scale and math.isfinite(err) and agree >= 0.999 and exact
+        if radius == 6:
+            cand = kernels.find_corner_candidates_kernel(x)
+            cand_p = kernels.top_candidates(resp_p, keep_p, 512, 0.05)
+            ok &= _same_candidates(name, *cand, *cand_p, scale)
+            errs.append(err)
     if not ok:
         raise SystemExit("K2 disagrees with its plain version")
 
     x = inputs["rendered"]
     H, W = x.shape
+
+    def kernel():
+        return kernels.corner_response_nms(x)
+
     plain_ms = cuda_ms(lambda: kernels.corner_response_nms_plain(x))
-    kernel_ms = cuda_ms(lambda: kernels.corner_response_nms(x))
-    kernel_ms2 = cuda_ms(lambda: kernels.corner_response_nms(x))
+    kernel_ms, eager_ms = graph_ms(kernel), cuda_ms(kernel)
+    kernel_ms2, eager_ms2 = graph_ms(kernel), cuda_ms(kernel)
     plain_ms2 = cuda_ms(lambda: kernels.corner_response_nms_plain(x))
     resp, keep = kernels.corner_response_nms(x)
     sort_ms = cuda_ms(lambda: kernels.top_candidates(resp, keep, 512, 0.05))
     # Least time for the same work: the frame read once, resp and keep
-    # written once; per pixel 2 operations per nonzero tap of the 8 quadrant
-    # kernels, ~30 for the response reduction and 2 * 2n for the separable
-    # (2n+1)^2 max.
-    n_taps = int((kernels._tap_tables(6)[2] != 0).sum())
+    # written once; per pixel the operations of the separable form (each
+    # quadrant kernel is a Gaussian, a product of one factor per axis, on a
+    # quadrant of the window; taps are 2 operations, an FMA):
+    # - angle 0: a row pass (2 half-rows of r taps) then a column pass (4
+    #   quadrants of r taps): 6r taps;
+    # - pi/4: in u = y - x, v = x + y the quadrants are the triangles
+    #   1 <= |u|, |v| and |u| + |v| <= 2r (u, v of one parity): per
+    #   direction of v one pass of running sums along v (2r - 1 taps, one per
+    #   prefix both parities need), then per quadrant one pass along u (2r - 1
+    #   taps): 6(2r - 1) taps;
+    # - the response reduction as the plain version writes it: 15 per
+    #   prototype, the max of the two and the clamp: 32;
+    # - the (2n+1)^2 max, separable, van Herk / Gil-Werman: 3 per axis, and
+    #   the comparison with it: 7.
+    r_ = 6
+    n_taps = 6 * r_ + 6 * (2 * r_ - 1)
+    direct_taps = int((kernels._tap_tables(r_)[2] != 0).sum())
     nbytes = H * W * 4 * 3
-    ops = H * W * (2 * n_taps + 30 + 2 * 2 * 4)
+    ops = H * W * (2 * n_taps + 32 + 7)
     t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, ops / FP32_FLOP_S * 1e3
     bound_ms = max(t_bytes, t_ops)
-    log(f"[K2] 960x540: kernel_ms={kernel_ms:.4f},{kernel_ms2:.4f} plain_ms={plain_ms:.4f},"
-        f"{plain_ms2:.4f} (the plain version, F.conv2d + F.max_pool2d on cuDNN, TF32 off, "
-        f"is also the library yardstick: library_ms = plain_ms) candidate sort+threshold "
-        f"{sort_ms:.4f} ms; bound_ms={bound_ms:.5f} "
-        f"({'bytes' if t_bytes >= t_ops else 'operations'}: {nbytes / 1e6:.2f} MB, "
-        f"{ops / 1e9:.3f} GFLOP; {n_taps} taps)")
     plain = min(plain_ms, plain_ms2)
+    eager = min(eager_ms, eager_ms2)
+    device = min(kernel_ms, kernel_ms2)
+    log(f"[K2] 960x540: kernel_ms={eager_ms:.4f},{eager_ms2:.4f} (per eager call; "
+        f"{kernel_ms:.4f},{kernel_ms2:.4f} device, CUDA graph of 20 calls) plain_ms="
+        f"{plain_ms:.4f},{plain_ms2:.4f} (the plain version, F.conv2d + F.max_pool2d on cuDNN, "
+        f"TF32 off, is also the library yardstick: library_ms = plain_ms) candidate "
+        f"sort+threshold {sort_ms:.4f} ms; bound_ms={bound_ms:.5f} (share "
+        f"{100 * bound_ms / eager:.2f} % of the eager time, {100 * bound_ms / device:.2f} % of "
+        f"the device time) ({'bytes' if t_bytes >= t_ops else 'operations'}: bytes "
+        f"{nbytes / 1e6:.2f} MB -> {t_bytes * 1e3:.3f} us, operations {ops / 1e9:.4f} GFLOP -> "
+        f"{t_ops * 1e3:.3f} us; {n_taps} taps per pixel in the separable form, "
+        f"{direct_taps} direct)")
     return dict(name="corner_response_nms", route="cuda", source=K2_SOURCE,
                 replaces=K2_REPLACES, launches=0, max_abs_err=max(errs),
-                ms=min(kernel_ms, kernel_ms2), plain_ms=plain, bound_ms=bound_ms,
-                bound_by="bytes" if t_bytes >= t_ops else "operations", library_ms=plain)
+                ms=eager, plain_ms=plain, bound_ms=bound_ms,
+                bound_by="bytes" if t_bytes >= t_ops else "operations", library_ms=plain,
+                ms_device=device)
 
 
 def intrinsics_phase(torch, mods, times, frames, tmp):
@@ -339,6 +471,57 @@ def intrinsics_phase(torch, mods, times, frames, tmp):
     return launches
 
 
+def stage8_setup(torch, device, tmp):
+    """The DS3-scale scene on the card, its stage-8 artifacts in ``tmp``, the
+    spline problem, its chunk plan, and the fast linearizer with the
+    problem's initial point (``lin(params0)`` hands K1 the main path's
+    inputs)."""
+    import types
+
+    from openimucameracalibrator_torch.apps.estimate_imu_to_camera_rotation import \
+        load_imu_camera_init
+    from openimucameracalibrator_torch.apps.estimate_poses import load_pose_dataset
+    from openimucameracalibrator_torch.core import spline_estimator as se
+    from openimucameracalibrator_torch.models import cameras
+    from openimucameracalibrator_torch.utils import io, synthetic
+    from openimucameracalibrator_torch.utils.types import ImuData, SplineWeightingData
+
+    t0 = time.perf_counter()
+    scene = synthetic.make_imu_camera_scene(
+        cameras.get_model("division_undistortion"), CAM, duration=DURATION,
+        cam_fps=CAM_FPS, imu_rate=IMU_RATE, image_size=(960, 540), noise_px=0.2,
+        time_offset=TIME_OFFSET, line_delay=LINE_DELAY, seed=7, device=device)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    paths = synthetic.write_stage8_inputs(scene, tmp, cam_fps=CAM_FPS, **SEW,
+                                          init_rot_err=INIT_ROT_ERR,
+                                          init_time_err=INIT_TIME_ERR)
+    corners = io.load_corners(paths["input_corners"])
+    log(f"[scene] {len(scene.frame_times)} views, {int(scene.obs_valid.sum())} valid of "
+        f"{scene.obs_valid.size} observations, {len(scene.imu_times)} IMU samples; "
+        f"rendered in {t1 - t0:.2f} s, artifacts written in {time.perf_counter() - t1:.2f} s")
+    imu = ImuData(times=scene.imu_times, accel=scene.accel, gyro=scene.gyro)
+    sew = SplineWeightingData(cam_fps=CAM_FPS, **SEW)
+    problem = se.build_problem(corners, io.load_camera_calibration(
+        paths["camera_calibration_json"]), imu, sew, TIME_OFFSET + INIT_TIME_ERR,
+        rolling_shutter=True, device=device)
+    shapes, D = family_shapes(se, problem)
+    log(f"[scene] tangent dim D={D}; chunk plan: " + "; ".join(
+        f"{n} K={K} R={R} F={F} L={L}" for n, K, R, _, F, _, L in shapes))
+
+    # The linearizer at the problem's initial point: K1's main-path inputs.
+    init = load_imu_camera_init(paths["imu_rotation_init"])
+    qg = init.q_gyro_to_cam
+    params0 = se.init_spline_params(
+        load_pose_dataset(paths["input_pose_dataset"]), [qg[0], -qg[1], -qg[2], -qg[3]],
+        [0.0, 0.0, 0.0],
+        problem, imu, pose_time_offset=init.time_offset, device=device)
+    params0["line_delay"] = torch.tensor([1.0 / CAM_FPS / 540], device=device)
+    lin, _ = se.make_solver_functions_fast(problem, se.build_layout(problem))
+    return types.SimpleNamespace(scene=scene, paths=paths, imu=imu, problem=problem,
+                                 shapes=shapes, D=D, params0=params0, lin=lin)
+
+
 def main():
     import torch
 
@@ -354,9 +537,7 @@ def main():
     from openimucameracalibrator_torch.apps import calibrate_camera as cal_cli
     from openimucameracalibrator_torch.apps import continuous_time_calibration as cli
     from openimucameracalibrator_torch.core import board_extractor
-    from openimucameracalibrator_torch.core import spline_estimator as se
     from openimucameracalibrator_torch.detect import checkerboard, kernels, render
-    from openimucameracalibrator_torch.models import cameras
     from openimucameracalibrator_torch.ops import lie
     from openimucameracalibrator_torch.solver import gram
     from openimucameracalibrator_torch.utils import io, precision, recorded, synthetic
@@ -371,31 +552,13 @@ def main():
     build_kernels(gram, kernels)
 
     tmp = tempfile.mkdtemp(prefix="oicc_chip_smoke_")
-    t0 = time.perf_counter()
-    scene = synthetic.make_imu_camera_scene(
-        cameras.get_model("division_undistortion"), CAM, duration=DURATION,
-        cam_fps=CAM_FPS, imu_rate=IMU_RATE, image_size=(960, 540), noise_px=0.2,
-        time_offset=TIME_OFFSET, line_delay=LINE_DELAY, seed=7, device=device)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    paths = synthetic.write_stage8_inputs(scene, tmp, cam_fps=CAM_FPS, **SEW,
-                                          init_rot_err=INIT_ROT_ERR,
-                                          init_time_err=INIT_TIME_ERR)
-    corners = io.load_corners(paths["input_corners"])
-    log(f"[scene] {len(scene.frame_times)} views, {int(scene.obs_valid.sum())} valid of "
-        f"{scene.obs_valid.size} observations, {len(scene.imu_times)} IMU samples; "
-        f"rendered in {t1 - t0:.2f} s, artifacts written in {time.perf_counter() - t1:.2f} s")
-    from openimucameracalibrator_torch.utils.types import ImuData, SplineWeightingData
-    imu = ImuData(times=scene.imu_times, accel=scene.accel, gyro=scene.gyro)
-    sew = SplineWeightingData(cam_fps=CAM_FPS, **SEW)
-    problem = se.build_problem(corners, io.load_camera_calibration(
-        paths["camera_calibration_json"]), imu, sew, TIME_OFFSET + INIT_TIME_ERR,
-        rolling_shutter=True, device=device)
-    shapes, D = family_shapes(se, problem)
-    log(f"[scene] tangent dim D={D}; chunk plan: " + "; ".join(
-        f"{n} K={K} R={R} F={F} L={L}" for n, K, R, _, F, _, L in shapes))
+    st = stage8_setup(torch, device, tmp)
+    scene, paths, shapes, D = st.scene, st.paths, st.shapes, st.D
+    lin, params0 = st.lin, st.params0
+    captured = capture_linearizer_inputs(gram, lin, params0)
 
-    rows = kernel_phase(gram, shapes)
+    rows = kernel_phase(gram, shapes, captured)
+    del captured
 
     out = os.path.join(tmp, "result.json")
     argv = sum([[f"--{k}", v] for k, v in paths.items()], [])
@@ -443,17 +606,6 @@ def main():
         row["launches"] = counts.get(row["tag"], 0)
 
     # One linearization of the same problem at its initial point.
-    from openimucameracalibrator_torch.apps.estimate_imu_to_camera_rotation import \
-        load_imu_camera_init
-    from openimucameracalibrator_torch.apps.estimate_poses import load_pose_dataset
-    init = load_imu_camera_init(paths["imu_rotation_init"])
-    qg = init.q_gyro_to_cam
-    params0 = se.init_spline_params(
-        load_pose_dataset(paths["input_pose_dataset"]), [qg[0], -qg[1], -qg[2], -qg[3]],
-        [0.0, 0.0, 0.0],
-        problem, imu, pose_time_offset=init.time_offset, device=device)
-    params0["line_delay"] = torch.tensor([1.0 / CAM_FPS / 540], device=device)
-    lin, _ = se.make_solver_functions_fast(problem, se.build_layout(problem))
     lin_ms = cuda_ms(lambda: lin(params0), warm=2, reps=5)
     log(f"[main] linearize {lin_ms:.2f} ms (CUDA events, mean of 5, D={D})")
 

@@ -34,7 +34,8 @@ from openimucameracalibrator_torch.utils import native
 def _tap_tables(radius: int):
     """(dys, dxs, ws) each (8, Kmax): nonzero taps of the 8 quadrant
     kernels (2 prototypes x 4 quadrants), zero-weight padded to a common
-    length so the kernel's tap loop has one trip count."""
+    length: the JAX package's tap table (the CUDA kernel reads
+    :func:`_packed_taps`)."""
     bank = image_mod._prototype_bank(radius)  # (2, 4, s, s)
     quads = []
     for p in range(2):
@@ -87,9 +88,9 @@ def corner_response_nms_plain(img: torch.Tensor, radius: int = 6, nms_radius: in
 # ---------------------------------------------------------------------------
 
 _SYMBOLS = {
-    "oicc_corner_nms_f32": ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+    "oicc_corner_nms_f32": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
                             ctypes.c_int),
-    "oicc_corner_nms_smem_bytes": ([ctypes.c_int] * 3, ctypes.c_longlong),
+    "oicc_corner_nms_smem_bytes": ([ctypes.c_int] * 2, ctypes.c_longlong),
 }
 _MAX_SMEM = 232448  # bytes of shared memory one block may use on Hopper
 
@@ -99,11 +100,33 @@ def build() -> native.Library:
     return native.build("corner_nms.cu", _SYMBOLS)
 
 
+def _in_quad(q: int, dy: int, dx: int) -> bool:
+    """Whether tap (dy, dx) belongs to quadrant kernel q (4 * prototype +
+    {a, b, c, d}); the rule ``in_quad`` of ``csrc/corner_nms.cu``."""
+    d1, d2 = (dy, -dx) if q < 4 else (dy - dx, -(dx + dy))
+    return [d1 < 0 and d2 < 0, d1 > 0 and d2 > 0, d1 < 0 and d2 > 0, d1 > 0 and d2 < 0][q % 4]
+
+
 @functools.lru_cache(maxsize=None)
-def _device_taps(radius: int, device: str):
-    dys, dxs, ws = _tap_tables(radius)
-    return (torch.as_tensor(dys, device=device), torch.as_tensor(dxs, device=device),
-            torch.as_tensor(ws, device=device))
+def _packed_taps(radius: int) -> np.ndarray:
+    """(8 r^2,) float32: the nonzero weights of the 8 quadrant kernels in the
+    kernel's loop order (dx, then quadrant, then dy), as ``corner_nms.cu``
+    reads them. Raises if ``_in_quad`` does not give exactly the prototype
+    bank's nonzero taps."""
+    r = radius
+    bank = image_mod._prototype_bank(r).reshape(8, 2 * r + 1, 2 * r + 1)
+    span = range(-r, r + 1)
+    mask = np.array([[[_in_quad(q, dy, dx) for dx in span] for dy in span] for q in range(8)])
+    if not np.array_equal(mask, bank != 0):
+        raise ValueError(f"corner_response_nms: the kernel's tap rule does not match "
+                         f"the prototype bank at radius {radius}")
+    return np.ascontiguousarray(bank.transpose(2, 0, 1)[mask.transpose(2, 0, 1)],
+                                dtype=np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _device_taps(radius: int, device: str) -> torch.Tensor:
+    return torch.as_tensor(_packed_taps(radius), device=device)
 
 
 def corner_response_nms(img: torch.Tensor, radius: int = 6, nms_radius: int = 4):
@@ -111,7 +134,9 @@ def corner_response_nms(img: torch.Tensor, radius: int = 6, nms_radius: int = 4)
     (2n+1)^2 local-max mask, from the CUDA kernel.
 
     ``img`` must be a contiguous 2-D float32 CUDA tensor; anything else
-    raises. Each launch adds one to ``corner_response_nms.launches``.
+    raises. (radius, nms_radius) = (6, 4) runs the kernel compiled for
+    those sizes, any other pair its generic instantiation. Each launch adds
+    one to ``corner_response_nms.launches``.
     """
     if img.device.type != "cuda":
         raise ValueError(f"corner_response_nms: needs a CUDA tensor, got {img.device} "
@@ -121,20 +146,24 @@ def corner_response_nms(img: torch.Tensor, radius: int = 6, nms_radius: int = 4)
                          f"got {img.dtype} {tuple(img.shape)}")
     if not img.is_contiguous():
         raise ValueError("corner_response_nms: img must be contiguous")
+    radius, nms_radius = int(radius), int(nms_radius)
+    if radius < 1 or nms_radius < 0:
+        raise ValueError(f"corner_response_nms: radius {radius} must be >= 1 and "
+                         f"nms_radius {nms_radius} >= 0")
     lib = build()
-    dys, dxs, ws = _device_taps(int(radius), str(img.device))
-    kmax = dys.shape[1]
-    if lib.lib.oicc_corner_nms_smem_bytes(kmax, int(radius), int(nms_radius)) > _MAX_SMEM:
+    if lib.lib.oicc_corner_nms_smem_bytes(radius, nms_radius) > _MAX_SMEM:
         raise ValueError(f"corner_response_nms: radius {radius} / nms_radius {nms_radius} "
                          "need more shared memory than a block has")
+    w_host = _packed_taps(radius)
+    w_dev = _device_taps(radius, str(img.device))
     H, W = img.shape
     resp = torch.empty_like(img)
     keep = torch.empty_like(img)
     with torch.cuda.device(img.device):
         stream = torch.cuda.current_stream(img.device).cuda_stream
-    err = lib.lib.oicc_corner_nms_f32(img.data_ptr(), dys.data_ptr(), dxs.data_ptr(),
-                                      ws.data_ptr(), resp.data_ptr(), keep.data_ptr(),
-                                      H, W, kmax, int(radius), int(nms_radius), stream)
+    err = lib.lib.oicc_corner_nms_f32(img.data_ptr(), w_host.ctypes.data, w_dev.data_ptr(),
+                                      resp.data_ptr(), keep.data_ptr(), H, W, radius,
+                                      nms_radius, stream)
     native.check(lib, err, "corner_response_nms")
     corner_response_nms.launches += 1
     return resp, keep

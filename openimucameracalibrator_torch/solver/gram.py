@@ -12,7 +12,9 @@ compact Jacobian ``J (R, F)`` by a static segment list:
 
 On a CUDA tensor the wrapper launches the hand-written kernel
 ``csrc/gram.cu`` (built with ``nvcc`` for ``sm_90a`` at first use, loaded
-with ``ctypes``); on a CPU tensor it computes the plain version
+with ``ctypes``; it skips the parts of H that no row of a 64-row tile
+can reach, from the host table :func:`_tile_reach`); on a CPU
+tensor it computes the plain version
 (:func:`_densify_segments` then ``Dᵀ D``), which is also what the kernel
 is held against on the card. There is no fallback from one to the other.
 The build itself is ``utils/native.py``.
@@ -97,8 +99,14 @@ def fused_gram_plain(J, r, idx, segments, L):
 # CUDA kernel
 # ---------------------------------------------------------------------------
 
-_SYMBOLS = {"oicc_fused_gram_f32": ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
-                                    ctypes.c_int)}
+_SYMBOLS = {
+    "oicc_fused_gram_f32": ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+                            ctypes.c_int),
+    "oicc_gram_scratch_floats": ([ctypes.c_int] * 3, ctypes.c_longlong),
+    "oicc_gram_reach_tile": ([], ctypes.c_int),
+    "oicc_gram_row_tile": ([], ctypes.c_int),
+    "oicc_gram_max_run": ([], ctypes.c_int),
+}
 
 
 def build() -> native.Library:
@@ -107,7 +115,7 @@ def build() -> native.Library:
 
 
 @functools.lru_cache(maxsize=None)
-def _coltab(segments, L: int, device: str) -> torch.Tensor:
+def _coltab_np(segments, L: int) -> np.ndarray:
     """(L, 5) int32 per-column lookup {run, base, b, nblk, td} (see gram.cu)."""
     tab = np.zeros((L, 5), np.int32)
     run = 0
@@ -122,7 +130,38 @@ def _coltab(segments, L: int, device: str) -> torch.Tensor:
             _, col0, ncols, off = seg
             for c in range(ncols):
                 tab[off + c] = (-1, col0 + c, 0, 0, 0)
-    return torch.as_tensor(tab, device=device)
+    return tab
+
+
+@functools.lru_cache(maxsize=None)
+def _tile_reach(segments, L: int, tile: int, max_run: int) -> np.ndarray:
+    """(ceil(L / tile), 2 * max_run + 1) int32: for each group of ``tile``
+    columns of H (the kernel's 16-column half tiles) and each run q <
+    ``max_run`` (gram.cu's MAX_RUN, which fixes the row stride the kernel
+    reads), the interval [lo, hi] of block indices ``idx[q][row]`` that put
+    a nonzero of D in one of the group's columns (lo > hi when none can),
+    then 1 if the group holds a fixed column.
+
+    A run column at block b of a run with nblk blocks is reached by
+    b - nblk < idx <= b; a group's run-q columns hold consecutive blocks."""
+    tab = _coltab_np(segments, L)
+    n_tiles = -(-L // tile)
+    out = np.zeros((n_tiles, 2 * max_run + 1), np.int32)
+    out[:, 0:2 * max_run:2], out[:, 1:2 * max_run:2] = 1, 0
+    for t in range(n_tiles):
+        cols = tab[t * tile:(t + 1) * tile]
+        out[t, -1] = int(np.any(cols[:, 0] == -1))
+        for q in range(max_run):
+            b, nblk = cols[cols[:, 0] == q, 2], cols[cols[:, 0] == q, 3]
+            if b.size:
+                out[t, 2 * q], out[t, 2 * q + 1] = (b - nblk + 1).min(), b.max()
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _device_tables(segments, L: int, tile: int, max_run: int, device: str):
+    return (torch.as_tensor(_coltab_np(segments, L), device=device),
+            torch.as_tensor(_tile_reach(segments, L, tile, max_run), device=device))
 
 
 def _check(name, t, dtype, shape, device):
@@ -139,8 +178,11 @@ def fused_gram(J, r, idx, segments, L: int, tag: str | None = None):
 
     ``segments`` is a hashable tuple of kernel-form segments (module
     docstring). CPU tensors take the plain version; CUDA tensors launch
-    the kernel (float32 J and r, int32 idx, contiguous) or raise. Each
-    launch adds one to ``fused_gram.launches`` (and to
+    the kernel (float32 J and r, int32 idx, contiguous) or raise. Any idx
+    gives the exact result; time-sorted rows let the kernel skip more of
+    D's zero blocks. Each launch (one C call: the per-row-tile index
+    ranges, the Gram, and the sum of the 1024-row slabs when a chunk has
+    more than one) adds one to ``fused_gram.launches`` (and to
     ``fused_gram.launches_by_tag[tag]`` when a tag is given).
     """
     if J.device.type == "cpu":
@@ -154,14 +196,22 @@ def fused_gram(J, r, idx, segments, L: int, tag: str | None = None):
     _check("r", r, torch.float32, (K, R), dev)
     _check("idx", idx, torch.int32, (n_run, K, R), dev)
     lib = build()
-    tab = _coltab(tuple(segments), int(L), str(dev))
+    L = int(L)
+    tab, reach = _device_tables(tuple(segments), L, lib.lib.oicc_gram_reach_tile(),
+                                lib.lib.oicc_gram_max_run(), str(dev))
+    rows = lib.lib.oicc_gram_row_tile()
     H = torch.empty((K, L, L), dtype=torch.float32, device=dev)
     g = torch.empty((K, L), dtype=torch.float32, device=dev)
+    ranges = torch.empty((max(n_run * K * (-(-R // rows)), 1), 2), dtype=torch.int32,
+                         device=dev)
+    part = torch.empty((max(lib.lib.oicc_gram_scratch_floats(K, R, L), 1),),
+                       dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.lib.oicc_fused_gram_f32(J.data_ptr(), r.data_ptr(), idx.data_ptr(),
-                                      tab.data_ptr(), H.data_ptr(), g.data_ptr(),
-                                      K, R, F, int(L), n_run, stream)
+                                      tab.data_ptr(), reach.data_ptr(), ranges.data_ptr(),
+                                      part.data_ptr(), H.data_ptr(), g.data_ptr(), K, R, F, L,
+                                      n_run, stream)
     native.check(lib, err, "fused_gram")
     fused_gram.launches += 1
     if tag is not None:

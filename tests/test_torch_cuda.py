@@ -24,29 +24,65 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _problem(rng, C, rd=2, ws=9, wr=5, n_fixed=8, n_points=6):
-    """Compact J (C, rd, F), r, run indices and kernel-form segments laid
-    out like the reprojection family with board points."""
+def _problem(rng, C, rd=2, ws=9, wr=5, n_fixed=8, n_points=6, n_bias=0, sort=False):
+    """Compact J (C, rd, F), r, per-measurement run indices and kernel-form
+    segments laid out like the reprojection family (board points optional),
+    plus a 2-block bias run when ``n_bias``. ``sort`` makes the spline runs
+    time-sorted, as the linearizer's chunks are; otherwise every run index
+    is uniform random, a few of them out of range."""
     order = 4
-    F = 3 * order + 6 + 3 * order + n_fixed + 3
+    F = 3 * order + 6 + 3 * order + n_fixed + 3 * (n_points > 0) + 6 * (n_bias > 0)
     col_r, col_f = 3 * order + 6, 3 * order + 6 + 3 * order
     J = rng.normal(size=(C, rd, F)).astype(np.float32)
     r = rng.normal(size=(C * rd,)).astype(np.float32)
-    runs = [rng.integers(0, ws - order + 1, size=C), rng.integers(0, wr - order + 1, size=C),
-            rng.integers(0, n_points, size=C)]
+    if sort:
+        t = np.sort(rng.uniform(0.0, 1.0, size=C))
+        runs = [np.floor(t * (w - order + 1)).astype(np.int64) for w in (ws, wr)]
+    else:
+        runs = [rng.integers(-1, w - order + 3, size=C) for w in (ws, wr)]
+    segs = [("run", 0, order, 3, ws, 0), ("run", col_r, order, 3, wr, 3 * ws),
+            ("fixed", col_f, n_fixed, 3 * ws + 3 * wr)]
     L = 3 * ws + 3 * wr + n_fixed
-    segs = (("run", 0, order, 3, ws, 0), ("run", col_r, order, 3, wr, 3 * ws),
-            ("fixed", col_f, n_fixed, 3 * ws + 3 * wr), ("run", col_f + n_fixed, 1, 3, n_points, L))
-    return J, r, runs, segs, L + 3 * n_points
+    col = col_f + n_fixed
+    if n_points:
+        runs.append(rng.integers(0, n_points, size=C))
+        segs.append(("run", col, 1, 3, n_points, L))
+        L, col = L + 3 * n_points, col + 3
+    if n_bias:
+        runs.append(np.sort(rng.integers(0, n_bias - 1, size=C)))
+        segs.append(("run", col, 2, 3, n_bias, L))
+        L += 3 * n_bias
+    return J, r, runs, tuple(segs), L
+
+
+K1_CASES = {
+    # the main path's locality: time-sorted runs, obs-like widths, R = 8192
+    "sorted": dict(C=4096, ws=35, wr=20, n_points=0, sort=True),
+    "random": dict(C=3000),
+    "ragged_rows": dict(C=1001),  # R = 2002: a 1024-row slab, then a ragged one
+    "ragged_L": dict(C=512, ws=10),  # L = 71, not a multiple of 32; R = 1024: one slab
+    "n_run_4": dict(C=700, n_bias=5),
+    "max_f": dict(C=640, n_fixed=31),  # F = 64 = MAX_F
+}
 
 
 @pytest.mark.cuda
-def test_cuda_kernel_matches_plain(cuda_device):
+@pytest.mark.parametrize("case", list(K1_CASES))
+def test_cuda_kernel_matches_plain(cuda_device, case):
     """The CUDA kernel against the plain version on the card, float32:
     relative error against max|H| within the float32 rounding of an
-    R-term sum (8 sqrt(R) eps)."""
-    J, r, runs, segs, L = _problem(np.random.default_rng(42), C=3000)
+    R-term sum (8 sqrt(R) eps); a second launch gives the same bits."""
+    J, r, runs, segs, L = _problem(np.random.default_rng(42), **K1_CASES[case])
     C, rd, F = J.shape
+    n_run = len(runs)
+    if case == "ragged_rows":
+        assert (C * rd) % 1024 and (C * rd) % 64
+    if case == "ragged_L":
+        assert L % 32
+    if case == "n_run_4":
+        assert n_run == 4
+    if case == "max_f":
+        assert F == 64
     K = 2
     Jt = torch.as_tensor(np.stack([J.reshape(C * rd, F)] * K), device=cuda_device)
     rt = torch.as_tensor(np.stack([r] * K), device=cuda_device)
@@ -55,6 +91,9 @@ def test_cuda_kernel_matches_plain(cuda_device):
     before = gram.fused_gram.launches
     H, g = gram.fused_gram(Jt, rt, idx, segs, L)
     assert gram.fused_gram.launches == before + 1
+    H2, g2 = gram.fused_gram(Jt, rt, idx, segs, L)
+    torch.cuda.synchronize()
+    assert torch.equal(H, H2) and torch.equal(g, g2)
     Hp, gp = gram.fused_gram_plain(Jt, rt, idx, segs, L)
     tol = 8 * np.sqrt(C * rd) * np.finfo(np.float32).eps
     assert (H - Hp).abs().max().item() <= tol * Hp.abs().max().item()
@@ -63,33 +102,52 @@ def test_cuda_kernel_matches_plain(cuda_device):
         gram.fused_gram(Jt.double(), rt, idx, segs, L)
 
 
-@pytest.mark.cuda
-def test_cuda_corner_kernel_matches_plain(cuda_device):
-    """K2 against its plain version on the card at 960x540, float32, TF32
-    off for cuDNN: resp within 2e-5 of max|resp|; keep on >= 0.999 of the
-    pixels and exactly where |resp - local max| > 1e-4 of max|resp|; the
-    candidate lists hold the same points."""
-    torch.backends.cudnn.allow_tf32 = False
+def _board_frame(shape, seed=7):
     board = render.render_checkerboard(10, 8, 48, 24).astype(np.float32)
-    img = np.full((540, 960), 170.0, np.float32)
+    img = np.full(shape, 170.0, np.float32)
     img[40:40 + board.shape[0], 100:100 + board.shape[1]] = board
-    img += np.random.default_rng(7).normal(0.0, 1.5, img.shape).astype(np.float32)
-    x = torch.as_tensor(img, device=cuda_device)
+    return img + np.random.default_rng(seed).normal(0.0, 1.5, img.shape).astype(np.float32)
+
+
+K2_CASES = {
+    "board_960x540": dict(frame=lambda: _board_frame((540, 960))),
+    "ragged_957x541": dict(frame=lambda: _board_frame((541, 957))),  # not multiples of 64x32
+    "tiny_30x20": dict(frame=lambda: 255.0 * np.random.default_rng(3).random((20, 30))),
+    # exact zeros: every pixel ties with its whole window, so keep is 1 everywhere
+    "constant": dict(frame=lambda: np.zeros((100, 130))),
+    "radius_5": dict(frame=lambda: _board_frame((540, 960)), radius=5, nms=3),  # generic
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(K2_CASES))
+def test_cuda_corner_kernel_matches_plain(cuda_device, case):
+    """K2 against its plain version on the card, float32, TF32 off for
+    cuDNN: resp within 2e-5 of max|resp|; keep on >= 0.999 of the pixels
+    and exactly where |resp - local max| > 1e-4 of max|resp|; on the board
+    frames the candidate lists hold the same points."""
+    torch.backends.cudnn.allow_tf32 = False
+    spec = K2_CASES[case]
+    radius, nms = spec.get("radius", 6), spec.get("nms", 4)
+    x = torch.as_tensor(np.asarray(spec["frame"](), np.float32), device=cuda_device)
     before = kernels.corner_response_nms.launches
-    resp, keep = kernels.corner_response_nms(x)
+    resp, keep = kernels.corner_response_nms(x, radius, nms)
     assert kernels.corner_response_nms.launches == before + 1
-    resp_p, keep_p = kernels.corner_response_nms_plain(x)
+    resp_p, keep_p = kernels.corner_response_nms_plain(x, radius, nms)
     scale = resp_p.abs().max().item()
     assert (resp - resp_p).abs().max().item() <= 2e-5 * scale
-    local_max = torch.nn.functional.max_pool2d(resp_p[None, None], 9, 1, 4)[0, 0]
+    local_max = torch.nn.functional.max_pool2d(resp_p[None, None], 2 * nms + 1, 1, nms)[0, 0]
     agree = (keep == keep_p).float().mean().item()
     clear = (resp_p - local_max).abs() > 1e-4 * scale
     assert agree >= 0.999 and torch.equal(keep[clear], keep_p[clear])
-    xy, s = image.find_corner_candidates(x)
-    xy_p, s_p = kernels.top_candidates(resp_p, keep_p, 512, 0.05)
-    n = int((s_p > 0).sum())
-    assert n >= 63 and int((s > 0).sum()) == n
-    assert {tuple(p) for p in xy[:n].tolist()} == {tuple(p) for p in xy_p[:n].tolist()}
+    if case == "constant":
+        assert bool((keep == 1).all()) and bool((keep_p == 1).all())
+    if case in ("board_960x540", "ragged_957x541", "radius_5"):
+        xy, s = image.find_corner_candidates(x, nms_radius=nms, response_radius=radius)
+        xy_p, s_p = kernels.top_candidates(resp_p, keep_p, 512, 0.05)
+        n = int((s_p > 0).sum())
+        assert n >= 63 and int((s > 0).sum()) == n
+        assert {tuple(p) for p in xy[:n].tolist()} == {tuple(p) for p in xy_p[:n].tolist()}
     for bad in (x.double(), x[None], x.t()):
         with pytest.raises(ValueError):
             kernels.corner_response_nms(bad)

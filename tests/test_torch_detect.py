@@ -94,6 +94,25 @@ def test_prototype_bank_and_tap_tables_equal_jax(radius):
         np.testing.assert_array_equal(a, b)
 
 
+@pytest.mark.parametrize("radius", [1, 3, 6, 9])
+def test_packed_taps_unpack_to_the_jax_bank(radius):
+    """The kernel's packed weights (loop order dx, quadrant, dy, taps chosen
+    by the membership rule of csrc/corner_nms.cu) put back on the
+    (2r+1)^2 grid give the JAX package's prototype bank exactly."""
+    w = t_kernels._packed_taps(radius)
+    assert w.dtype == np.float32 and w.shape == (8 * radius * radius,)
+    dense = np.zeros((8, 2 * radius + 1, 2 * radius + 1), np.float32)
+    it = iter(w)
+    for dx in range(-radius, radius + 1):
+        for q in range(8):
+            for dy in range(-radius, radius + 1):
+                if t_kernels._in_quad(q, dy, dx):
+                    dense[q, dy + radius, dx + radius] = next(it)
+    assert next(it, None) is None
+    np.testing.assert_array_equal(dense.reshape(2, 4, 2 * radius + 1, 2 * radius + 1),
+                                  j_image._prototype_bank(radius))
+
+
 @pytest.mark.parametrize("warp", [False, True])
 def test_plain_response_nms_matches_xla(warp):
     img = _noisy(_board(warp)[0])

@@ -143,6 +143,50 @@ def test_linearizer_inputs_match_pallas(monkeypatch):
                                    atol=1e-6 * np.abs(np.asarray(gp)).max())
 
 
+def _reached(tab, lo, hi):
+    """The skip rule of csrc/gram.cu for one (row tile, H tile): rows whose
+    run-q indices lie in [lo[q], hi[q]] can reach the tile."""
+    n_run = len(lo)
+    return bool(tab[-1]) or any(max(lo[q], tab[2 * q]) <= min(hi[q], tab[2 * q + 1])
+                                for q in range(n_run))
+
+
+@pytest.mark.parametrize("layout", ["obs", "board_points", "accel", "tile_16"])
+def test_tile_reach_table_matches_densified_rows(layout, rng):
+    """gram._tile_reach against the densified D (numpy, J all ones): a
+    single row reaches an H tile exactly when D has a nonzero in the tile's
+    columns, for in-range and out-of-range indices; over a 64-row tile
+    (min and max of each run's indices) the rule never skips a tile that
+    one of its rows reaches."""
+    tile = 16 if layout == "tile_16" else 32
+    order = 4
+    if layout == "accel":
+        ws, wr, nb = 12, 9, 6
+        segs = (("run", 0, order, 3, ws, 0), ("run", 18, order, 3, wr, 3 * ws),
+                ("run", 36, 2, 3, nb, 3 * ws + 3 * wr), ("fixed", 42, 9, 3 * (ws + wr + nb)))
+        F, L = 51, 3 * (ws + wr + nb) + 9
+    else:
+        J, _, _, segs, L = _random_problem(rng, n_points=6 if layout == "board_points" else 0)
+        F = J.shape[-1]
+    runs = [s for s in segs if s[0] == "run"]
+    R = 300
+    idx = np.stack([rng.integers(-2, s[4] + 2, size=R) for s in runs]).astype(np.int32)
+    D, _ = gram._densify_segments(torch.zeros(1, R, 1), torch.ones(1, R, 1, F),
+                                  gram._per_row_segments(segs, torch.as_tensor(idx[:, None])), L)
+    nz = D[0].numpy() != 0
+    max_run = 4  # MAX_RUN of csrc/gram.cu
+    tab = gram._tile_reach(segs, L, tile, max_run)
+    assert tab.shape == (-(-L // tile), 2 * max_run + 1)
+    for t in range(tab.shape[0]):
+        cols = nz[:, t * tile:(t + 1) * tile]
+        for row in range(R):
+            assert _reached(tab[t], idx[:, row], idx[:, row]) == cols[row].any(), (t, row)
+        for r0 in range(0, R, 64):
+            blk = idx[:, r0:r0 + 64]
+            if cols[r0:r0 + 64].any():
+                assert _reached(tab[t], blk.min(1), blk.max(1))
+
+
 def test_wrapper_rejects_what_the_kernel_does_not_take(rng):
     """A CUDA call is checked before launch; CPU tensors take the plain
     version without any check of type (float64 works there)."""
