@@ -34,6 +34,18 @@ Phases (every failure exits non-zero; nothing is caught and carried on):
 8. intrinsics — the radon path on the card: extract_board on the 300 frames,
                the corner file, the calibrate_camera CLI; recovery of the
                camera, and one K2 launch per frame.
+9. pipeline  — the run_calibration CLI on the card, from a workspace seeded
+               with the corners K2 detected in phase 8 (intrinsics) and the
+               DS3 scene's corners (imu-cam) and its telemetry: stages 1, 4,
+               5, 6, 7 and 8; recovery of the truth, SEW inside its search
+               ranges, three K1 launches per linearization, K1's first
+               launch of each family held against its plain version at the
+               shapes this run gives it (its own SEW changes them, so they
+               are not phase 4's), K2 launches counted. Then stages 5
+               (pose estimation) and 7 (rotation / time-offset init) alone on
+               the same inputs, timed, and on the DS3 scene rendered with a
+               global shutter, where they are held to the JAX tests' bars
+               (both stages model a global shutter).
 
 The line before the last is a JSON object listing every ported kernel; the
 last line is ``{"ok": true, "device": {...}}``. Needs one CUDA device and
@@ -42,6 +54,7 @@ nothing of the JAX package.
 """
 
 import concurrent.futures
+import dataclasses
 import json
 import math
 import os
@@ -176,17 +189,12 @@ def _random_idx(gen, K, R, rd, segs):
     return torch.stack(idx).to(torch.int32).contiguous()
 
 
-def check_gram(gram, name, J, r, idx, segs, L):
-    """The kernel against its plain version on one input: returns max abs
-    error; exits unless it is within tolerance and two launches agree bit
-    for bit."""
+def gram_agrees(gram, name, J, r, idx, segs, L, H, g, note=""):
+    """The kernel's (H, g) on one input against the plain version's: returns
+    max abs error; exits unless it is within tolerance."""
     import torch
 
     K, R, F = J.shape
-    H, g = gram.fused_gram(J, r, idx, segs, L)
-    H2, g2 = gram.fused_gram(J, r, idx, segs, L)
-    torch.cuda.synchronize()
-    same_bits = bool(torch.equal(H, H2) and torch.equal(g, g2))
     Hp, gp = gram.fused_gram_plain(J, r, idx, segs, L)
     err_h = (H - Hp).abs().max().item()
     err_g = (g - gp).abs().max().item()
@@ -196,11 +204,49 @@ def check_gram(gram, name, J, r, idx, segs, L):
     rel_h, rel_g = err_h / scale_h, err_g / scale_g
     log(f"kernel[{name}] K={K} R={R} F={F} L={L} n_run={idx.shape[0]}: "
         f"H max_abs_err={err_h:.3e} rel={rel_h:.3e}, g max_abs_err={err_g:.3e} "
-        f"rel={rel_g:.3e} (tolerance rel {tol:.3e}); two launches bit-identical: {same_bits}")
-    if not (rel_h <= tol and rel_g <= tol and math.isfinite(err_h) and math.isfinite(err_g)
-            and same_bits):
+        f"rel={rel_g:.3e} (tolerance rel {tol:.3e}){note}")
+    if not (rel_h <= tol and rel_g <= tol and math.isfinite(err_h) and math.isfinite(err_g)):
         raise SystemExit(f"kernel[{name}] disagrees with its plain version")
     return max(err_h, err_g)
+
+
+def check_gram(gram, name, J, r, idx, segs, L):
+    """The kernel against its plain version on one input: returns max abs
+    error; exits unless it is within tolerance and two launches agree bit
+    for bit."""
+    import torch
+
+    H, g = gram.fused_gram(J, r, idx, segs, L)
+    H2, g2 = gram.fused_gram(J, r, idx, segs, L)
+    torch.cuda.synchronize()
+    same_bits = bool(torch.equal(H, H2) and torch.equal(g, g2))
+    err = gram_agrees(gram, name, J, r, idx, segs, L, H, g,
+                      f"; two launches bit-identical: {same_bits}")
+    if not same_bits:
+        raise SystemExit(f"kernel[{name}]: two launches differ")
+    return err
+
+
+def checking_gram_spy(gram, checked):
+    """A stand-in for ``gram.fused_gram`` that launches the kernel as the
+    path asks (one counted launch per call) and, on the first call of each
+    family, holds that launch's result against the plain version on the same
+    J, r, idx; ``checked[tag]`` gets the error and the shapes."""
+    real = gram.fused_gram
+
+    def spy(J, r, idx, segs, L, tag=None):
+        gram.fused_gram = real  # the wrapper counts on gram.fused_gram
+        try:
+            H, g = real(J, r, idx, segs, L, tag=tag)
+        finally:
+            gram.fused_gram = spy
+        if tag not in checked:
+            K, R, F = J.shape
+            err = gram_agrees(gram, f"{tag}, pipeline's stage 8", J, r, idx, segs, L, H, g)
+            checked[tag] = dict(max_abs_err=err, K=K, R=R, F=F, L=int(L))
+        return H, g
+
+    return spy
 
 
 def time_gram(gram, J, r, idx, segs, L):
@@ -471,6 +517,180 @@ def intrinsics_phase(torch, mods, times, frames, tmp):
     return launches
 
 
+def init_stages(torch, mods, corners, calib, scene, imu, label):
+    """Stages 5 and 7 alone on the card, timed; returns their errors
+    against the scene's truth (90th percentiles for the poses)."""
+    pose_estimator, imu_cam_rotation, lie = mods
+    n_cost = [0]
+    real_cost = imu_cam_rotation._alignment_cost
+
+    def counting_cost(*args):
+        n_cost[0] += 1
+        return real_cost(*args)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    poses = pose_estimator.estimate_poses(corners, calib, device="cuda")
+    torch.cuda.synchronize()
+    pose_s = time.perf_counter() - t0
+    pose_mem = torch.cuda.max_memory_allocated() / 2**30
+    imu_cam_rotation._alignment_cost = counting_cost
+    try:
+        t0 = time.perf_counter()
+        init = imu_cam_rotation.estimate_imu_to_camera_rotation(poses, imu, device="cuda")
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+    finally:
+        imu_cam_rotation._alignment_cost = real_cost
+    n = len(poses.times)
+    v = poses.valid
+    t90 = float(np.percentile(np.linalg.norm(poses.t_w_c[v] - scene.t_w_c[v], axis=-1), 90))
+    r90 = float(np.percentile(torch.linalg.vector_norm(lie.quat_boxminus(
+        torch.as_tensor(poses.q_w_c[v]), torch.as_tensor(scene.q_w_c[v])), dim=-1).numpy(), 90))
+    q_want = lie.quat_conjugate(torch.as_tensor(scene.q_i_c))
+    rot_err = float(torch.linalg.vector_norm(lie.quat_boxminus(
+        torch.as_tensor(init.q_gyro_to_cam), q_want)))
+    dt_err = abs(init.time_offset - scene.time_offset)
+    out = dict(valid_share=float(poses.valid.mean()), t90=t90, r90=r90, rot_err=rot_err,
+               dt_err=dt_err)
+    log(f"[pipeline] {label}: estimate_poses {pose_s:.3f} s for {n} views "
+        f"({1e3 * pose_s / n:.3f} ms per view; peak device memory {pose_mem:.2f} GiB), "
+        f"{int(poses.valid.sum())} valid; 90th-percentile pose error {t90 * 1e3:.3f} mm, "
+        f"{r90 * 1e3:.3f} mrad; estimate_imu_to_camera_rotation {init_s:.3f} s, "
+        f"{n_cost[0]} cost evaluations ({1e3 * init_s / n_cost[0]:.3f} ms each): time offset "
+        f"{init.time_offset:+.6f} s (error {dt_err * 1e3:.3f} ms), rotation error "
+        f"{rot_err * 1e3:.3f} mrad, gyro bias {init.gyro_bias.tolist()}")
+    return out
+
+
+def pipeline_phase(torch, mods, st, cam_corners, tmp):
+    """The run_calibration CLI on the card from seeded corner files, with
+    K1's first launch of each family held against its plain version at the
+    shapes the pipeline's own SEW gives it; then stages 5 and 7 alone.
+    Checks every bar; returns K1's launches by family during the CLI run,
+    K1's check per family, and K2's launches during the run."""
+    (run_cal, imu_camera_calibrator, pose_estimator, imu_cam_rotation, se, gram, kernels, io,
+     lie, synthetic, cameras) = mods
+    scene = st.scene
+    ws = os.path.join(tmp, "pipeline_ws")
+    os.makedirs(ws)
+    shutil.copy(cam_corners, os.path.join(ws, "cam_corners.uson"))
+    shutil.copy(st.paths["input_corners"], os.path.join(ws, "imu_cam_corners.uson"))
+
+    captured = {}
+    real = imu_camera_calibrator.calibrate_imu_camera
+
+    def spy(corners, calib, poses, imu, init, sew, **kw):
+        captured.update(poses=poses, init=init, sew=sew)
+        captured["result"] = real(corners, calib, poses, imu, init, sew, **kw)
+        return captured["result"]
+
+    gram_checked = {}
+    real_gram = gram.fused_gram
+    gram.reset_counts()
+    kernels.reset_counts()
+    imu_camera_calibrator.calibrate_imu_camera = spy
+    gram.fused_gram = checking_gram_spy(gram, gram_checked)
+    try:
+        t0 = time.perf_counter()
+        summary = run_cal.main([
+            "--path_calib_dataset", tmp, "--telemetry_json", st.paths["telemetry_json"],
+            "--telemetry_format", "generic", "--camera_model", "DIVISION_UNDISTORTION",
+            "--board_type", "radon", "--num_squares_x", str(SQUARES[0]),
+            "--num_squares_y", str(SQUARES[1]), "--voxel_grid_size", "0.01",
+            "--workspace", ws, "--device", "cuda"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        imu_camera_calibrator.calibrate_imu_camera = real
+        gram.fused_gram = real_gram
+    counts = dict(gram.fused_gram.launches_by_tag)
+    launches = gram.fused_gram.launches
+    k2_launches = kernels.corner_response_nms.launches
+    res, sew, init, poses = (captured[k] for k in ("result", "sew", "init", "poses"))
+    shapes, D = family_shapes(se, res.problem)
+    n_lin = sum(s["linearizations"] for s in res.stages)
+    log(f"[pipeline] run_calibration CLI wall {wall:.2f} s; stage_timings_s "
+        f"{json.dumps(summary['stage_timings_s'])}")
+    log(f"[pipeline] stage 1: {summary['intrinsics_reproj_error_px']:.4f} px, params "
+        f"{summary['intrinsics_params']}; stage 4: biases {summary['bias_estimate']}; "
+        f"stage 5: {int(poses.valid.sum())} of {len(poses.valid)} poses; stage 6: dt_so3 "
+        f"{sew.dt_so3} s, dt_r3 {sew.dt_r3} s, std_so3 {sew.std_so3}, std_r3 {sew.std_r3}; "
+        f"stage 7: time offset {init.time_offset:+.6f} s")
+    log(f"[pipeline] stage 8: tangent dim D={D}; chunk plan: " + "; ".join(
+        f"{n} K={K} R={R} F={F} L={L}" for n, K, R, _, F, _, L in shapes))
+    log(f"[pipeline] corner_response_nms launches {k2_launches} (the corners come from the "
+        f"seeded workspace)")
+    for i, s in enumerate(res.stages):
+        log(f"[pipeline] stage 8 LM stage {i}: {s['iterations']} iterations, {s['status']}, "
+            f"{s['seconds']:.3f} s wall, {s['linearizations']} linearizations")
+    q = torch.tensor(summary["q_i_c"], dtype=torch.float64)
+    rot_err = float(torch.linalg.vector_norm(lie.quat_boxminus(
+        q, torch.as_tensor(scene.q_i_c, dtype=torch.float64))))
+    dt_err = abs(summary["time_offset_s"] - TIME_OFFSET)
+    ld = summary["line_delay_us"] * 1e-6
+    reproj = summary["final_reproj_error_px"]
+    t_err = np.abs(np.asarray(summary["t_i_c"]) - scene.t_i_c)
+    g_norm = float(np.linalg.norm(summary["gravity"]))
+    log(f"[pipeline] stage 8: rotation error {rot_err:.2e} rad, time offset error "
+        f"{dt_err * 1e3:.3f} ms, line delay {ld * 1e6:.3f} us (truth {LINE_DELAY * 1e6:.3f}), "
+        f"mean reprojection error {reproj:.4f} px, t_i_c error {t_err.tolist()} m, "
+        f"|gravity| {g_norm:.4f}; fused_gram launches {launches} ({counts}) for {n_lin} "
+        f"linearizations")
+    numbers = [reproj, ld, summary["time_offset_s"], summary["intrinsics_reproj_error_px"],
+               sew.dt_so3, sew.dt_r3, sew.std_so3, sew.std_r3] + summary["t_i_c"] \
+        + summary["gravity"] + summary["q_i_c"]
+    checks = {
+        "intrinsics reprojection error < 0.15 px": summary["intrinsics_reproj_error_px"] < 0.15,
+        "stage 6: dt_so3 in [0.01, 0.2] s and dt_r3 in [0.01, 0.15] s":
+            0.01 <= sew.dt_so3 <= 0.2 and 0.01 <= sew.dt_r3 <= 0.15,
+        "rotation error < 0.01 rad": rot_err < 0.01,
+        "|time offset - truth| < 2 ms": dt_err < 2e-3,
+        "line delay within 30% of truth": abs(ld - LINE_DELAY) < 0.3 * LINE_DELAY,
+        "mean reprojection error < 0.35 px": reproj < 0.35,
+        "t_i_c within 5 mm per axis": bool(np.all(t_err < 5e-3)),
+        "|gravity| within 0.05 of 9.81": abs(g_norm - 9.81) < 0.05,
+        "finite result": all(math.isfinite(v) for v in numbers),
+        "3 kernel launches per linearization": n_lin > 0 and launches == 3 * n_lin and all(
+            counts.get(f, 0) == n_lin for f in ("obs", "accel", "gyro")),
+        "fused_gram held against its plain version at each family's shapes":
+            sorted(gram_checked) == ["accel", "gyro", "obs"],
+    }
+
+    # Stages 5 and 7 alone on the pipeline's inputs: timed; the DS3 scene
+    # has a rolling shutter (16.7 ms readout), which neither stage models.
+    calib = io.load_camera_calibration(os.path.join(ws, "cam_calib.json"))
+    corners = io.load_corners(st.paths["input_corners"])
+    stage_mods = (pose_estimator, imu_cam_rotation, lie)
+    rs = init_stages(torch, stage_mods, corners, calib, scene, st.imu,
+                     "pipeline inputs (rolling shutter)")
+    # The same scene with a global shutter: the JAX tests' condition.
+    gs_scene = synthetic.make_imu_camera_scene(
+        cameras.get_model("division_undistortion"), CAM, duration=DURATION,
+        cam_fps=CAM_FPS, imu_rate=IMU_RATE, image_size=(960, 540), noise_px=0.2,
+        time_offset=TIME_OFFSET, line_delay=0.0, seed=7, device="cuda")
+    gs_corners = dataclasses.replace(corners, points2d=gs_scene.observations,
+                                     valid=gs_scene.obs_valid)
+    gs_imu = dataclasses.replace(st.imu, times=gs_scene.imu_times, accel=gs_scene.accel,
+                                 gyro=gs_scene.gyro)
+    gs = init_stages(torch, stage_mods, gs_corners, calib, gs_scene, gs_imu,
+                     "same scene, global shutter")
+    checks.update({
+        "stage 5 (rolling shutter): >= 80% of views valid": rs["valid_share"] >= 0.8,
+        "stage 5 (global shutter): >= 80% of views valid": gs["valid_share"] >= 0.8,
+        "stage 5 (global shutter): 90th-percentile pose errors < 8 mm and < 8 mrad":
+            gs["t90"] < 0.008 and gs["r90"] < 0.008,
+        "stage 7 (global shutter): |time offset - truth| < 4 ms": gs["dt_err"] < 4e-3,
+        "stage 7 (global shutter): rotation error < 0.02 rad": gs["rot_err"] < 0.02,
+    })
+    for k, ok in checks.items():
+        log(f"[pipeline] check {k}: {'ok' if ok else 'FAILED'}")
+    if not all(checks.values()):
+        raise SystemExit("pipeline checks failed")
+    return counts, gram_checked, k2_launches
+
+
 def stage8_setup(torch, device, tmp):
     """The DS3-scale scene on the card, its stage-8 artifacts in ``tmp``, the
     spline problem, its chunk plan, and the fast linearizer with the
@@ -536,8 +756,12 @@ def main():
     sys.path.insert(0, here)
     from openimucameracalibrator_torch.apps import calibrate_camera as cal_cli
     from openimucameracalibrator_torch.apps import continuous_time_calibration as cli
-    from openimucameracalibrator_torch.core import board_extractor
+    from openimucameracalibrator_torch.apps import run_calibration as run_cal
+    from openimucameracalibrator_torch.core import (board_extractor, imu_cam_rotation,
+                                                    imu_camera_calibrator, pose_estimator)
+    from openimucameracalibrator_torch.core import spline_estimator as se
     from openimucameracalibrator_torch.detect import checkerboard, kernels, render
+    from openimucameracalibrator_torch.models import cameras
     from openimucameracalibrator_torch.ops import lie
     from openimucameracalibrator_torch.solver import gram
     from openimucameracalibrator_torch.utils import io, precision, recorded, synthetic
@@ -613,6 +837,17 @@ def main():
     k2_row = k2_phase(torch, kernels, frames[0])
     k2_row["launches"] = intrinsics_phase(
         torch, (board_extractor, checkerboard, kernels, io, cal_cli), times, frames, tmp)
+    del frames
+
+    pipeline_counts, pipeline_checked, k2_row["launches_pipeline"] = pipeline_phase(
+        torch, (run_cal, imu_camera_calibrator, pose_estimator, imu_cam_rotation, se, gram,
+                kernels, io, lie, synthetic, cameras), st,
+        os.path.join(tmp, "radon_corners.uson"), tmp)
+    for row in rows:
+        row["launches_pipeline"] = pipeline_counts.get(row["tag"], 0)
+        seen = pipeline_checked[row["tag"]]
+        row["max_abs_err_pipeline"] = seen["max_abs_err"]
+        row["shape_pipeline"] = {k: seen[k] for k in ("K", "R", "F", "L")}
 
     shutil.rmtree(tmp, ignore_errors=True)
     for row in rows:

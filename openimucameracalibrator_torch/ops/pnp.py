@@ -1,12 +1,18 @@
-"""Batched pose initialization for planar targets: homographies, Zhang focal.
+"""Batched pose initialization: homography DLT, Zhang focal init, PnP, RANSAC.
 
-Port of the planar-init part of ``ops/pnp.py`` of the JAX package
-(normalized-DLT and least-squares homographies, Zhang's closed-form shared
-focal, pose from a homography, and the division-model lambda search).
-Every function takes a ``mask`` beside the points, so padded per-view
-corner arrays work, and broadcasts over leading batch dims. The calibrated
-PnP (``pnp_dlt``) and the RANSAC functions come with
-``core/pose_estimator.py`` in a later slice.
+Port of ``ops/pnp.py`` of the JAX package: normalized-DLT and
+least-squares homographies, Zhang's closed-form shared focal, pose from a
+homography, the division-model lambda search, calibrated DLT PnP and the
+fixed-size-batch RANSAC (K random subsets solved at once, best inlier
+count wins). Every function takes a ``mask`` beside the points, so padded
+per-view corner arrays work, and broadcasts over leading batch dims.
+
+RANSAC samples its subsets by Gumbel top-k on uniforms drawn from an
+explicit ``torch.Generator``. The JAX package draws them from
+``jax.random``, a stream torch cannot reproduce, so each RANSAC is split
+into a public function that draws the ``(K, P)`` uniforms and a private
+one that takes them: given the same uniforms both packages pick the same
+subsets.
 """
 
 from __future__ import annotations
@@ -193,3 +199,128 @@ def radial_division_init(obj_xy: torch.Tensor, img_centered: torch.Tensor,
                        torch.full_like(mean_err, float("inf")))
     best = torch.argmin(errs)
     return lambdas[best], Hs[best], errs
+
+
+def pnp_dlt(points3d: torch.Tensor, bearings_xy: torch.Tensor, mask: torch.Tensor):
+    """Calibrated DLT PnP from normalized image coords (z=1 plane).
+
+    points3d: (..., P, 3); bearings_xy: (..., P, 2); mask: (..., P).
+    Returns (q_cam_world, t_cam_world): X_cam = R X + t.
+    Needs >= 6 well-spread points.
+    """
+    X, Y, Z = points3d[..., 0], points3d[..., 1], points3d[..., 2]
+    x, y = bearings_xy[..., 0], bearings_xy[..., 1]
+    zero = torch.zeros_like(X)
+    one = torch.ones_like(X)
+    r1 = torch.stack([X, Y, Z, one, zero, zero, zero, zero, -x * X, -x * Y, -x * Z, -x], -1)
+    r2 = torch.stack([zero, zero, zero, zero, X, Y, Z, one, -y * X, -y * Y, -y * Z, -y], -1)
+    m = mask.to(points3d.dtype)[..., None]
+    A = torch.cat([r1 * m, r2 * m], dim=-2)
+    vt = torch.linalg.svd(A, full_matrices=False)[2]
+    p = vt[..., -1, :].reshape(vt.shape[:-2] + (3, 4))
+    # The DLT solution is +-lambda [R|t]; the correct sign makes the
+    # rotation part have positive determinant.
+    s = torch.sign(torch.linalg.det(p[..., :3]))[..., None, None]
+    p = p * torch.where(s == 0, torch.ones_like(s), s)
+    R_raw = p[..., :3]
+    t_raw = p[..., 3]
+    U, S, Vt = torch.linalg.svd(R_raw)
+    scale = 3.0 / torch.clamp(torch.sum(S, -1), min=1e-12)
+    det = torch.linalg.det(U @ Vt)
+    D = torch.stack([torch.ones_like(det), torch.ones_like(det), det], -1)
+    R = (U * D[..., None, :]) @ Vt
+    t = t_raw * scale[..., None]
+    return lie.matrix_to_quat(R), t
+
+
+def reprojection_errors_normalized(q, t, points3d, bearings_xy, mask):
+    """Squared reprojection error on the normalized image plane (inf where
+    masked or behind the camera)."""
+    pc = lie.quat_rotate(q[..., None, :], points3d) + t[..., None, :]
+    z = pc[..., 2]
+    zz = z[..., None]
+    proj = pc[..., :2] / torch.where(torch.abs(zz) > 1e-9, zz, torch.full_like(zz, 1e-9))
+    err2 = torch.sum((proj - bearings_xy) ** 2, -1)
+    return torch.where(mask & (z > 1e-6), err2, torch.full_like(err2, float("inf")))
+
+
+def _gumbel_subsets(uniforms: torch.Tensor, mask: torch.Tensor, sample_size: int):
+    """Weighted sampling without replacement: Gumbel top-k over the valid
+    points. uniforms (..., K, P), mask (..., P) -> indices (..., K, S)."""
+    gumbel = -torch.log(-torch.log(uniforms + 1e-12) + 1e-12)
+    scores = torch.where(mask[..., None, :], gumbel, torch.full_like(gumbel, float("-inf")))
+    return torch.topk(scores, sample_size, dim=-1)[1]
+
+
+def _take_points(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x (..., P, d) gathered at idx (..., K, S) -> (..., K, S, d)."""
+    return torch.take_along_dim(x[..., None, :, :], idx[..., None], dim=-2)
+
+
+def _best_hypothesis(qs, ts, points3d, bearings_xy, mask, inlier_thresh):
+    """Score every hypothesis (..., K) on all points; the first with the
+    most inliers wins: (q, t, inlier mask, count)."""
+    errs = reprojection_errors_normalized(qs, ts, points3d[..., None, :, :],
+                                          bearings_xy[..., None, :, :], mask[..., None, :])
+    inl = errs < inlier_thresh ** 2
+    counts = torch.sum(inl, -1)
+    best = torch.argmax(counts, dim=-1, keepdim=True)
+    q = torch.take_along_dim(qs, best[..., None], dim=-2)[..., 0, :]
+    t = torch.take_along_dim(ts, best[..., None], dim=-2)[..., 0, :]
+    inl_b = torch.take_along_dim(inl, best[..., None], dim=-2)[..., 0, :]
+    return q, t, inl_b, torch.take_along_dim(counts, best, dim=-1)[..., 0]
+
+
+def _ransac_pnp_planar(points3d, bearings_xy, mask, uniforms, sample_size: int = 6,
+                       inlier_thresh: float = 0.01):
+    """:func:`ransac_pnp_planar` on given uniforms (..., K, P)."""
+    idx = _gumbel_subsets(uniforms, mask, sample_size)
+    pts = points3d.expand(bearings_xy.shape[:-1] + (3,))
+    obj_s = _take_points(pts[..., :2], idx)
+    brg_s = _take_points(bearings_xy, idx)
+    msk_s = _take_points(mask[..., None], idx)[..., 0].to(bearings_xy.dtype)
+    Hs = homography_dlt(obj_s, brg_s, msk_s)
+    batch = Hs.shape[:-2]
+    f1 = torch.ones(batch, dtype=bearings_xy.dtype, device=bearings_xy.device)
+    cc0 = torch.zeros(batch + (2,), dtype=bearings_xy.dtype, device=bearings_xy.device)
+    qs, ts = pose_from_homography(Hs, f1, cc0)
+    return _best_hypothesis(qs, ts, pts, bearings_xy, mask, inlier_thresh)
+
+
+def ransac_pnp_planar(points3d: torch.Tensor, bearings_xy: torch.Tensor, mask: torch.Tensor,
+                      generator: torch.Generator, num_hypotheses: int = 128,
+                      sample_size: int = 6, inlier_thresh: float = 0.01):
+    """RANSAC pose for PLANAR targets (z == 0) from normalized image coords.
+
+    The 3D DLT is degenerate for coplanar points, so hypotheses come from
+    minimal homographies (board plane -> normalized image plane) decomposed
+    with f=1, pp=0. Same fixed-size batched structure as
+    :func:`ransac_pnp`; the uniforms come from ``generator``.
+    """
+    u = torch.rand(mask.shape[:-1] + (num_hypotheses, mask.shape[-1]), generator=generator,
+                   dtype=bearings_xy.dtype, device=bearings_xy.device)
+    return _ransac_pnp_planar(points3d, bearings_xy, mask, u, sample_size, inlier_thresh)
+
+
+def _ransac_pnp(points3d, bearings_xy, mask, uniforms, sample_size: int = 6,
+                inlier_thresh: float = 0.01):
+    """:func:`ransac_pnp` on given uniforms (..., K, P)."""
+    idx = _gumbel_subsets(uniforms, mask, sample_size)
+    pts = points3d.expand(bearings_xy.shape[:-1] + (3,))
+    qs, ts = pnp_dlt(_take_points(pts, idx), _take_points(bearings_xy, idx),
+                     _take_points(mask[..., None], idx)[..., 0])
+    return _best_hypothesis(qs, ts, pts, bearings_xy, mask, inlier_thresh)
+
+
+def ransac_pnp(points3d: torch.Tensor, bearings_xy: torch.Tensor, mask: torch.Tensor,
+               generator: torch.Generator, num_hypotheses: int = 128, sample_size: int = 6,
+               inlier_thresh: float = 0.01):
+    """Fixed-size-batch RANSAC PnP.
+
+    Samples ``num_hypotheses`` 6-point subsets (uniforms from
+    ``generator``), solves all with one batched SVD, scores all, returns
+    the best pose, its inlier mask and the inlier count.
+    """
+    u = torch.rand(mask.shape[:-1] + (num_hypotheses, mask.shape[-1]), generator=generator,
+                   dtype=bearings_xy.dtype, device=bearings_xy.device)
+    return _ransac_pnp(points3d, bearings_xy, mask, u, sample_size, inlier_thresh)

@@ -233,7 +233,8 @@ def write_stage8_inputs(scene: SyntheticScene, out_dir: str, *, cam_fps: float,
     Corners, camera calibration json, poses ``.npz`` (scene truth), generic
     telemetry json, SEW json, and the IMU-to-camera rotation init json,
     built from truth perturbed by ``init_rot_err`` rad about a fixed axis
-    and ``init_time_err`` seconds (the init stage itself is not ported).
+    and ``init_time_err`` seconds: stage 8 alone, apart from the stages
+    that make these artifacts (``apps/run_calibration.py`` runs those).
     Returns the CLI flags (without ``--output_path``) as a dict.
     """
     import json

@@ -30,8 +30,15 @@ from openimucameracalibrator_torch.ops import pnp  # noqa: E402
 from openimucameracalibrator_torch.utils import precision, recorded, synthetic  # noqa: E402
 
 
+def _is_range(e):
+    """A ``record_function`` range's span on the device timeline, not a
+    kernel."""
+    return bool(getattr(e, "is_user_annotation", False)) or e.key.startswith("pose_estimator.")
+
+
 def profiled(fn, label):
-    """Run fn() under torch.profiler; print wall, busy share, top kernels."""
+    """Run fn() under torch.profiler; print wall, busy share, top kernels;
+    return the profile."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
@@ -40,9 +47,9 @@ def profiled(fn, label):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     cuda = torch.autograd.DeviceType.CUDA
-    rows = sorted((e for e in prof.key_averages() if e.device_type == cuda),
+    rows = sorted((e for e in prof.key_averages() if e.device_type == cuda and not _is_range(e)),
                   key=lambda e: -e.self_device_time_total)
-    kernels = [e for e in prof.events() if e.device_type == cuda]
+    kernels = [e for e in prof.events() if e.device_type == cuda and not _is_range(e)]
     busy_us = sum(e.device_time for e in kernels)
     if not rows:
         print(f"{label}: the profiler recorded no device time")
@@ -51,6 +58,7 @@ def profiled(fn, label):
     print(f"{'device ms':>10} {'calls':>6}  name")
     for e in rows[:15]:
         print(f"{e.self_device_time_total / 1e3:10.3f} {e.count:6d}  {e.key[:100]}")
+    return prof
 
 
 def timed(fn):

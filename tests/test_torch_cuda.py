@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain versions, on the card.
+"""The port's CUDA kernels against their plain versions, and the stage-8
+input stages against the same functions on the CPU, on the card.
 
 Every test here is marked ``cuda`` and skips without a CUDA device. This
 file imports no JAX, so it also runs where only the port is installed,
@@ -11,8 +12,13 @@ import numpy as np
 import pytest
 import torch
 
+from openimucameracalibrator_torch.core import imu_cam_rotation, pose_estimator
 from openimucameracalibrator_torch.detect import image, kernels, render
+from openimucameracalibrator_torch.models import cameras
+from openimucameracalibrator_torch.ops import lie
 from openimucameracalibrator_torch.solver import gram
+from openimucameracalibrator_torch.utils import synthetic
+from openimucameracalibrator_torch.utils.types import CameraCalibration, CornerDataset, ImuData
 
 
 @pytest.fixture
@@ -151,3 +157,37 @@ def test_cuda_corner_kernel_matches_plain(cuda_device, case):
     for bad in (x.double(), x[None], x.t()):
         with pytest.raises(ValueError):
             kernels.corner_response_nms(bad)
+
+
+@pytest.mark.cuda
+def test_pose_and_rotation_init_on_the_card_match_the_cpu(cuda_device):
+    """estimate_poses and estimate_imu_to_camera_rotation in float32 on the
+    card against float64 on the CPU, on a 10 s scene: the same valid views,
+    poses within 1e-4 (m and rad: float32 of a GN minimum, each side with
+    its own random stream), the time offset within the search tolerance
+    1e-4 s, rotation and gyro bias within 1e-4."""
+    cam = [437.0, 437.5, 481.0, 271.5]
+    sc = synthetic.make_imu_camera_scene(cameras.get_model("pinhole"), cam, duration=10.0,
+                                         cam_fps=10.0, imu_rate=100.0, time_offset=-0.0813,
+                                         noise_px=0.15, seed=4, device="cpu")
+    ds = CornerDataset(sc.frame_times, sc.observations, sc.obs_valid,
+                       np.asarray(sc.board.points), sc.image_size, 10.0)
+    calib = CameraCalibration("pinhole", np.asarray(cam), sc.image_size, 0.0)
+    p_cpu = pose_estimator.estimate_poses(ds, calib, device="cpu")
+    p_gpu = pose_estimator.estimate_poses(ds, calib, device=cuda_device)
+    np.testing.assert_array_equal(p_gpu.valid, p_cpu.valid)
+    v = p_cpu.valid
+    assert v.mean() > 0.8
+    r_err = torch.linalg.vector_norm(lie.quat_boxminus(
+        torch.as_tensor(p_gpu.q_w_c[v]), torch.as_tensor(p_cpu.q_w_c[v])), dim=-1)
+    assert float(r_err.max()) < 1e-4
+    np.testing.assert_allclose(p_gpu.t_w_c[v], p_cpu.t_w_c[v], rtol=0, atol=1e-4)
+
+    imu = ImuData(sc.imu_times, sc.accel, sc.gyro)
+    i_cpu = imu_cam_rotation.estimate_imu_to_camera_rotation(p_cpu, imu, device="cpu")
+    i_gpu = imu_cam_rotation.estimate_imu_to_camera_rotation(p_cpu, imu, device=cuda_device)
+    assert abs(i_gpu.time_offset - i_cpu.time_offset) < 1e-4
+    q_err = torch.linalg.vector_norm(lie.quat_boxminus(
+        torch.as_tensor(i_gpu.q_gyro_to_cam), torch.as_tensor(i_cpu.q_gyro_to_cam)))
+    assert float(q_err) < 1e-4
+    np.testing.assert_allclose(i_gpu.gyro_bias, i_cpu.gyro_bias, rtol=0, atol=1e-4)

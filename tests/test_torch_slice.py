@@ -124,7 +124,7 @@ for n in names:
     importlib.import_module(n)
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib", "openimucameracalibrator_tpu")))
 assert not bad, bad
-assert len(names) >= 25, names
+assert len(names) >= 49, names
 print(len(names))
 """
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -191,3 +191,30 @@ def test_entry_points_default_to_cuda(tmp_path):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             board_extractor.extract_board([(0.0, frame)], board_extractor.BoardExtractorOptions(
                 board_type=bt), device="cpu")
+
+    # The stage-8 inputs: pose estimation, board-point refinement, the
+    # rotation / time-offset init, their CLIs and the pipeline CLI.
+    from openimucameracalibrator_torch.apps import estimate_imu_to_camera_rotation as rot_cli
+    from openimucameracalibrator_torch.apps import estimate_poses as pose_cli
+    from openimucameracalibrator_torch.apps import run_calibration
+    from openimucameracalibrator_torch.core import imu_cam_rotation, pose_estimator
+
+    calib = t_types.CameraCalibration("pinhole", np.array([400.0, 400, 480, 270]), (960, 540),
+                                      0.0)
+    poses = t_types.PoseDataset(np.zeros(2), np.tile([1.0, 0, 0, 0], (2, 1)), np.zeros((2, 3)),
+                                np.ones(2, bool), np.zeros((3, 3)))
+    imu = t_types.ImuData(np.arange(3.0), np.zeros((3, 3)), np.zeros((3, 3)))
+    calls = [
+        lambda: pose_estimator.estimate_poses(corners, calib),
+        lambda: pose_estimator.optimize_board_points(corners, calib, poses),
+        lambda: imu_cam_rotation.estimate_imu_to_camera_rotation(poses, imu),
+        lambda: pose_cli.main(["--input_corners", "x", "--camera_calibration_json", "x",
+                               "--output_pose_dataset", "x"]),
+        lambda: rot_cli.main(["--telemetry_json", "x", "--input_pose_dataset", "x",
+                              "--imu_rotation_init_output", "x"]),
+        lambda: run_calibration.main(["--path_calib_dataset", str(tmp_path),
+                                      "--telemetry_json", "x"]),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
