@@ -8,7 +8,7 @@ Phases (every failure exits non-zero; nothing is caught and carried on):
 1. device    — the card's name, and its name and power limit per nvidia-smi.
 2. build     — build both CUDA kernels at once, one nvcc each: the fused
                densify + Gram (csrc/gram.cu, K1) and the corner response +
-               NMS (csrc/corner_nms.cu, K2).
+               NMS with its block mode (csrc/corner_nms.cu, K2).
 3. scene     — the DS3-scale synthetic recording (60 s, 60 fps, 200 Hz IMU,
                960x540 division-undistortion camera, rolling shutter,
                charuco 10x8) rendered on the card, and its stage-8 input
@@ -23,6 +23,12 @@ Phases (every failure exits non-zero; nothing is caught and carried on):
                its default iteration caps; recovery of the truth, and the
                K1 launches counted during the run; then the time of one
                linearization of the same problem.
+5b. banded   — the same recording cut to 300 s (D = 28,358, above
+               BANDED_MIN_DIM): at the initial point the banded damped step
+               against the dense one and a float64 dense one; then the
+               stage-8 CLI on it, which must take the banded solve for
+               every LM iteration (a spy counts the solves), with the same
+               bars and K1's launches.
 6. render    — 300 frames at 960x540 of a 10x8 checkerboard (0.04 m
                squares) through the division-undistortion camera along a
                sinusoid trajectory, rendered on the card (supersample 2,
@@ -34,10 +40,18 @@ Phases (every failure exits non-zero; nothing is caught and carried on):
 8. intrinsics — the radon path on the card: extract_board on the 300 frames,
                the corner file, the calibrate_camera CLI; recovery of the
                camera, and one K2 launch per frame.
-9. pipeline  — the run_calibration CLI on the card, from a workspace seeded
-               with the corners K2 detected in phase 8 (intrinsics) and the
-               DS3 scene's corners (imu-cam) and its telemetry: stages 1, 4,
-               5, 6, 7 and 8; recovery of the truth, SEW inside its search
+8b. charuco  — the same 300 frames of the 10x8 charuco board (0.03 m
+               markers, DICT_ARUCO_ORIGINAL): extract_board on the batched
+               video path (32 frames per block), corners against the
+               render's truth, one K2 block-mode launch per block, the
+               per-stage detection times (video.benchmark_block, the mask
+               fetched packed and unpacked), K2's block mode against its
+               plain version on one block (and at radius 5), with times;
+               then the calibrate_camera CLI with phase 8's bars.
+9. pipeline  — the run_calibration CLI on the card on its default board
+               (charuco), from a workspace seeded with phase 8b's corners
+               (intrinsics) and the DS3 scene's corners (imu-cam) and its
+               telemetry: stages 1, 4, 5, 6, 7 and 8; recovery of the truth, SEW inside its search
                ranges, three K1 launches per linearization, K1's first
                launch of each family held against its plain version at the
                shapes this run gives it (its own SEW changes them, so they
@@ -81,6 +95,15 @@ N_FRAMES = 300
 SQUARES = (10, 8)
 TRAJ = dict(pos_center=(0.2, 0.16, -0.46), pos_amp=0.1, rot_amp=0.3, base_freq=0.1,
             q_base=[1.0, 0.0, 0.0, 0.0])
+
+# Charuco intrinsics path: the run_calibration default board, 10x8 charuco,
+# DICT_ARUCO_ORIGINAL, along the same trajectory.
+CHARUCO = dict(square_length=0.04, marker_length=0.03)
+
+# Banded path: the DS3 recording cut to 300 s (D ~ 28.4k, the size at which
+# the port used to raise), its damped solve at this lambda.
+BANDED_DURATION = 300.0
+BANDED_LAM = 1e-4
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and fp32 CUDA-core FLOP/s.
 HBM_BYTES_S = 3.35e12
@@ -565,11 +588,12 @@ def init_stages(torch, mods, corners, calib, scene, imu, label):
 
 
 def pipeline_phase(torch, mods, st, cam_corners, tmp):
-    """The run_calibration CLI on the card from seeded corner files, with
-    K1's first launch of each family held against its plain version at the
-    shapes the pipeline's own SEW gives it; then stages 5 and 7 alone.
-    Checks every bar; returns K1's launches by family during the CLI run,
-    K1's check per family, and K2's launches during the run."""
+    """The run_calibration CLI on the card with its default board (charuco)
+    from seeded corner files, with K1's first launch of each family held
+    against its plain version at the shapes the pipeline's own SEW gives
+    it; then stages 5 and 7 alone. Checks every bar; returns K1's launches
+    by family during the CLI run, K1's check per family, and K2's launches
+    (2-D, block mode) during the run."""
     (run_cal, imu_camera_calibrator, pose_estimator, imu_cam_rotation, se, gram, kernels, io,
      lie, synthetic, cameras) = mods
     scene = st.scene
@@ -597,7 +621,7 @@ def pipeline_phase(torch, mods, st, cam_corners, tmp):
         summary = run_cal.main([
             "--path_calib_dataset", tmp, "--telemetry_json", st.paths["telemetry_json"],
             "--telemetry_format", "generic", "--camera_model", "DIVISION_UNDISTORTION",
-            "--board_type", "radon", "--num_squares_x", str(SQUARES[0]),
+            "--num_squares_x", str(SQUARES[0]),
             "--num_squares_y", str(SQUARES[1]), "--voxel_grid_size", "0.01",
             "--workspace", ws, "--device", "cuda"])
         torch.cuda.synchronize()
@@ -607,7 +631,7 @@ def pipeline_phase(torch, mods, st, cam_corners, tmp):
         gram.fused_gram = real_gram
     counts = dict(gram.fused_gram.launches_by_tag)
     launches = gram.fused_gram.launches
-    k2_launches = kernels.corner_response_nms.launches
+    k2_launches = (kernels.corner_response_nms.launches, kernels.corner_response_block.launches)
     res, sew, init, poses = (captured[k] for k in ("result", "sew", "init", "poses"))
     shapes, D = family_shapes(se, res.problem)
     n_lin = sum(s["linearizations"] for s in res.stages)
@@ -620,8 +644,9 @@ def pipeline_phase(torch, mods, st, cam_corners, tmp):
         f"stage 7: time offset {init.time_offset:+.6f} s")
     log(f"[pipeline] stage 8: tangent dim D={D}; chunk plan: " + "; ".join(
         f"{n} K={K} R={R} F={F} L={L}" for n, K, R, _, F, _, L in shapes))
-    log(f"[pipeline] corner_response_nms launches {k2_launches} (the corners come from the "
-        f"seeded workspace)")
+    log(f"[pipeline] default board (charuco); corner_response_nms launches {k2_launches[0]}, "
+        f"corner_response_block launches {k2_launches[1]} (the corners come from the seeded "
+        f"workspace)")
     for i, s in enumerate(res.stages):
         log(f"[pipeline] stage 8 LM stage {i}: {s['iterations']} iterations, {s['status']}, "
             f"{s['seconds']:.3f} s wall, {s['linearizations']} linearizations")
@@ -691,11 +716,311 @@ def pipeline_phase(torch, mods, st, cam_corners, tmp):
     return counts, gram_checked, k2_launches
 
 
-def stage8_setup(torch, device, tmp):
-    """The DS3-scale scene on the card, its stage-8 artifacts in ``tmp``, the
-    spline problem, its chunk plan, and the fast linearizer with the
-    problem's initial point (``lin(params0)`` hands K1 the main path's
-    inputs)."""
+def banded_phase(torch, mods, tmp):
+    """The DS3 recording cut to BANDED_DURATION (D ~ 28.4k, where the port
+    used to raise): one linearization at the initial point; the banded and
+    the dense damped solve on the same (H, g, lambda) against each other
+    and against a float64 dense solve; then the stage-8 CLI on that scene
+    through the banded solve, with its bars, wall and K1 launches. Returns
+    K1's launches by family during the CLI run."""
+    se, banded, lm, gram, cli, io, lie = mods
+    d = os.path.join(tmp, "banded")
+    os.makedirs(d)
+    st = stage8_setup(torch, "cuda", d, duration=BANDED_DURATION)
+    layout = se.build_layout(st.problem)
+    D = layout.tangent_dim
+    H, g, _ = st.lin(st.params0)
+    mask = layout.free_mask(se.flags_to_fixed(se.DEFAULT_FLAGS), dtype=H.dtype, device="cuda")
+    H, g = lm._mask_system(H, g, mask)
+    lam = torch.tensor(BANDED_LAM, dtype=H.dtype, device="cuda")
+    t0 = time.perf_counter()
+    struct = banded.from_problem(layout, st.problem, se.ORDER)
+    struct_s = time.perf_counter() - t0
+    if struct is None:
+        raise SystemExit(f"banded: no slab decomposition at D={D}")
+    d_band = banded.make_banded_solver(struct)(H, g, lam)
+    d_dense = lm._solve_damped(H, g, lam)
+    torch.cuda.synchronize()
+    d_64 = lm._solve_damped(H.double(), g.double(), lam.double())
+    del H, g
+    torch.cuda.empty_cache()
+
+    def rel(a, b):
+        return float(torch.linalg.vector_norm(a.double() - b) / torch.linalg.vector_norm(b))
+
+    e_band, e_dense = rel(d_band, d_64), rel(d_dense, d_64)
+    e_pair = rel(d_band, d_dense.double())
+    K, smax = struct.idx.shape
+    log(f"[banded] {BANDED_DURATION:.0f} s, D={D}: {K} slabs of <= {smax} coordinates, tail "
+        f"{struct.tail.shape[0]}; from_problem {struct_s:.3f} s; lambda {BANDED_LAM}: "
+        f"|banded - dense| / |dense| = {e_pair:.3e} (tolerance 1e-3), against the float64 dense "
+        f"step: banded {e_band:.3e}, dense {e_dense:.3e} (tolerance: banded <= 2 x dense + 1e-6)")
+    if not (e_pair < 1e-3 and e_band <= 2 * e_dense + 1e-6 and math.isfinite(e_band)):
+        raise SystemExit("banded: the banded step disagrees with the dense one")
+    del d_band, d_dense, d_64
+
+    # The CLI through the banded solve, which "auto" takes from D >=
+    # BANDED_MIN_DIM (the sweep's crossover, below this D).
+    n_solves = [0]
+    real_make = banded.make_banded_solver
+
+    def counting_make(struct_):
+        solve = real_make(struct_)
+
+        def counted(*args):
+            n_solves[0] += 1
+            return solve(*args)
+
+        return counted
+
+    out = os.path.join(d, "result.json")
+    argv = sum([[f"--{k}", v] for k, v in st.paths.items()], [])
+    argv += ["--output_path", out, "--device", "cuda"]
+    gram.reset_counts()
+    banded.make_banded_solver = counting_make
+    try:
+        t0 = time.perf_counter()
+        cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        banded.make_banded_solver = real_make
+    counts = dict(gram.fused_gram.launches_by_tag)
+    launches = gram.fused_gram.launches
+    res = io.load_imu_camera_result(out)
+    stages = res["lm_stages"]
+    n_lin = sum(s_["linearizations"] for s_ in stages)
+    for i, s_ in enumerate(stages):
+        log(f"[banded] LM stage {i}: {s_['iterations']} iterations, {s_['status']}, "
+            f"{s_['seconds']:.3f} s wall, {s_['linearizations']} linearizations")
+    q = torch.tensor([res["q_i_c"][k] for k in "wxyz"], dtype=torch.float64)
+    rot_err = float(torch.linalg.vector_norm(lie.quat_boxminus(
+        q, torch.as_tensor(st.scene.q_i_c, dtype=torch.float64))))
+    dt_err = abs(res["time_offset_imu_to_cam_s"] - TIME_OFFSET)
+    ld, reproj = res["cam_line_delay"], res["final_reproj_error"]
+    log(f"[banded] stage-8 CLI (BANDED_MIN_DIM {se.BANDED_MIN_DIM}, D={D}) wall {wall:.2f} s; "
+        f"{n_solves[0]} banded solves; rotation error "
+        f"{rot_err:.2e} rad, time offset error {dt_err * 1e3:.3f} ms, line delay "
+        f"{ld * 1e6:.3f} us (truth {LINE_DELAY * 1e6:.3f}), mean reprojection error "
+        f"{reproj:.4f} px; fused_gram launches {launches} ({counts}) for {n_lin} linearizations")
+    checks = {
+        "rotation error < 0.01 rad": rot_err < 0.01,
+        "|time offset - truth| < 2 ms": dt_err < 2e-3,
+        "line delay within 30% of truth": abs(ld - LINE_DELAY) < 0.3 * LINE_DELAY,
+        "mean reprojection error < 0.35 px": reproj < 0.35,
+        "finite result": all(math.isfinite(v) for v in
+                             [reproj, ld, res["final_cost"]] + list(res["t_i_c"].values())),
+        "3 kernel launches per linearization": n_lin > 0 and launches == 3 * n_lin and all(
+            counts.get(f, 0) == n_lin for f in ("obs", "accel", "gyro")),
+        "every damped solve banded (one per LM iteration)":
+            n_solves[0] == sum(s_["iterations"] for s_ in stages) > 0,
+    }
+    for k, ok in checks.items():
+        log(f"[banded] check {k}: {'ok' if ok else 'FAILED'}")
+    if not all(checks.values()):
+        raise SystemExit("banded path checks failed")
+    del st
+    torch.cuda.empty_cache()
+    return counts
+
+
+def charuco_truth(torch, pose, times, cameras, lie, spec):
+    """(V, N, 2) pixel positions of the charuco corners in each frame of the
+    global-shutter render (identity extrinsics, no time offset)."""
+    dev = "cuda"
+    q, p = pose(torch.as_tensor(np.asarray(times, np.float64), device=dev))
+    X = torch.as_tensor(np.concatenate([spec.chessboard_corners(),
+                                        np.zeros((spec.chessboard_corners().shape[0], 1))], 1),
+                        device=dev)
+    Xc = lie.quat_rotate(lie.quat_conjugate(q)[:, None, :], X[None] - p[:, None, :])
+    uv, _ = cameras.get_model("division_undistortion").project(
+        torch.as_tensor(CAM, dtype=torch.float64, device=dev), Xc)
+    return uv.cpu().numpy()
+
+
+def k2_block_phase(torch, kernels, block):
+    """K2's block mode against its plain version on one block of the
+    charuco frames; times; the kernels-line row (launches filled in later)."""
+    x = torch.as_tensor(block.astype(np.float32), device="cuda")
+    resp = kernels.corner_response_block(x)
+    resp_p = kernels.corner_response_block_plain(x)
+    torch.cuda.synchronize()
+    scale = resp_p.abs().max().item()
+    err = (resp - resp_p).abs().max().item()
+    same_2d = bool(torch.equal(resp[0], kernels.corner_response_nms(x[0].contiguous())[0]))
+    resp5 = kernels.corner_response_block(x[:4], 5)
+    err5 = (resp5 - kernels.corner_response_block_plain(x[:4], 5)).abs().max().item()
+    scale5 = resp5.abs().max().item()
+    log(f"[K2 block] {tuple(x.shape)}: resp max_abs_err={err:.3e} (tolerance {2e-5 * scale:.3e} "
+        f"= 2e-5 * max|resp|); frame 0 equals the 2-D kernel's response bit for bit: {same_2d}; "
+        f"radius 5 (generic instantiation) on 4 frames: max_abs_err={err5:.3e} (tolerance "
+        f"{2e-5 * scale5:.3e})")
+    if not (err <= 2e-5 * scale and err5 <= 2e-5 * scale5 and math.isfinite(err) and same_2d):
+        raise SystemExit("K2 block mode disagrees with its plain version")
+    bank = torch.as_tensor(kernels.image_mod._prototype_bank(6), device="cuda")
+    bank = bank.reshape(8, 1, 13, 13)
+
+    def library():
+        return torch.nn.functional.conv2d(x[:, None], bank, padding=6)
+
+    def kernel():
+        return kernels.corner_response_block(x)
+
+    plain_ms = cuda_ms(lambda: kernels.corner_response_block_plain(x))
+    device_ms, eager_ms = graph_ms(kernel), cuda_ms(kernel)
+    device_ms2, eager_ms2 = graph_ms(kernel), cuda_ms(kernel)
+    library_ms = cuda_ms(library)
+    plain_ms2 = cuda_ms(lambda: kernels.corner_response_block_plain(x))
+    # Least time for the same work: the block read once and the response
+    # written once; per pixel the separable form's operations (k2_phase)
+    # and the response reduction, without the NMS.
+    Fn, H, W = x.shape
+    n_taps = 6 * 6 + 6 * (2 * 6 - 1)
+    nbytes = Fn * H * W * 4 * 2
+    ops = Fn * H * W * (2 * n_taps + 32)
+    t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, ops / FP32_FLOP_S * 1e3
+    bound_ms = max(t_bytes, t_ops)
+    eager, device, plain = min(eager_ms, eager_ms2), min(device_ms, device_ms2), min(plain_ms,
+                                                                                    plain_ms2)
+    log(f"[K2 block] {Fn}x{H}x{W}: kernel_ms={eager_ms:.4f},{eager_ms2:.4f} (per eager call; "
+        f"{device_ms:.4f},{device_ms2:.4f} device, CUDA graph of 20 calls) plain_ms="
+        f"{plain_ms:.4f},{plain_ms2:.4f} library_ms={library_ms:.4f} (cuDNN F.conv2d of the 8 "
+        f"quadrant kernels over the block, TF32 off: the correlations alone); bound_ms="
+        f"{bound_ms:.5f} ({'bytes' if t_bytes >= t_ops else 'operations'}: bytes "
+        f"{nbytes / 1e6:.1f} MB -> {t_bytes * 1e3:.2f} us, operations {ops / 1e9:.3f} GFLOP -> "
+        f"{t_ops * 1e3:.2f} us); share {100 * bound_ms / eager:.2f} % of the eager time, "
+        f"{100 * bound_ms / device:.2f} % of the device time")
+    return dict(name="corner_response_block", route="cuda", source=K2_SOURCE,
+                replaces=K2_REPLACES, launches=0, max_abs_err=max(err, err5), ms=eager,
+                plain_ms=plain, bound_ms=bound_ms,
+                bound_by="bytes" if t_bytes >= t_ops else "operations", library_ms=library_ms,
+                ms_device=device, shape=[Fn, H, W])
+
+
+def charuco_phase(torch, mods, tmp):
+    """The charuco intrinsics path on the card: 300 rendered frames of the
+    10x8 charuco board, extract_board on the batched video path, corners
+    against the render's truth, per-stage detection times, K2's block mode
+    against its plain version, and the calibrate_camera CLI. Returns the
+    block-mode row and the corner file."""
+    board_extractor, video, kernels, io, cal_cli, recorded, synthetic, cameras, lie = mods
+    t0 = time.perf_counter()
+    pose = synthetic.sinusoid_trajectory(np.random.default_rng(3), 60.0, device="cuda", **TRAJ)
+    tex = recorded.charuco_texture(*SQUARES, CHARUCO["square_length"],
+                                   CHARUCO["marker_length"], 64, 32)
+    times = np.linspace(0.0, 9.0, N_FRAMES)
+    frames = recorded.render_frames(pose, times, "division_undistortion", CAM,
+                                    [1.0, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0], tex, (960, 540),
+                                    supersample=2, noise_std=1.5, seed=3, device="cuda")
+    torch.cuda.synchronize()
+    log(f"[charuco] {len(frames)} frames 960x540 of the 10x8 charuco board (0.04 m squares, "
+        f"0.03 m markers, DICT_ARUCO_ORIGINAL) rendered in {time.perf_counter() - t0:.2f} s")
+    opts = board_extractor.BoardExtractorOptions(board_type="charuco", squares_x=SQUARES[0],
+                                                 squares_y=SQUARES[1], batch_frames=32,
+                                                 **CHARUCO)
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    ds = board_extractor.extract_board(zip(times, frames), opts, fps=30.0, device="cuda")
+    torch.cuda.synchronize()
+    det_s = time.perf_counter() - t0
+    block_launches = kernels.corner_response_block.launches
+    nms_launches = kernels.corner_response_nms.launches
+    spec = board_extractor._charuco_spec(opts)
+    truth = charuco_truth(torch, pose, times, cameras, lie, spec)
+    err = np.linalg.norm(ds.points2d - truth, axis=-1)[ds.valid]
+    n = len(frames)
+    per_frame = ds.valid.sum(1)
+    good = int((per_frame >= 55).sum())
+    log(f"[charuco] extract_board (batched, 32 frames per block) {det_s:.2f} s, "
+        f"{1e3 * det_s / n:.2f} ms per frame; corners per frame: mean {per_frame.mean():.2f}, "
+        f">= 55 of 63 in {good} of {n} frames; error against the render's truth: mean "
+        f"{err.mean():.4f} px, max {err.max():.4f} px over {err.size} corners; "
+        f"corner_response_block launches {block_launches}, corner_response_nms {nms_launches}")
+    bench = video.benchmark_block(np.stack(frames[:32]), spec,
+                                  video.VideoDetectorOptions(batch_frames=32), device="cuda")
+    log("[charuco] per 32-frame block (benchmark_block, mean of 5, ms per frame): " + ", ".join(
+        f"{k[:-3]} {v / 32:.3f}" for k, v in bench.items() if k.endswith("_ms"))
+        + f"; device-resident {bench['device_resident_fps']:.1f} frames/s; block ms "
+        + json.dumps({k: v for k, v in bench.items() if k.endswith("_ms")}))
+    row = k2_block_phase(torch, kernels, np.stack(frames[:32]))
+    row["launches"] = block_launches
+    row["detect_ms_per_frame"] = {k[:-3]: v / 32 for k, v in bench.items() if k.endswith("_ms")}
+    del frames
+
+    corners = os.path.join(tmp, "charuco_corners.uson")
+    calib_json = os.path.join(tmp, "charuco_calib.json")
+    io.save_corners(ds, corners)
+    t0 = time.perf_counter()
+    cal_cli.main(["--input_corners", corners, "--save_path_calib_dataset", calib_json,
+                  "--grid_size", "0.01", "--device", "cuda"])
+    torch.cuda.synchronize()
+    cal_s = time.perf_counter() - t0
+    calib = io.load_camera_calibration(calib_json)
+    with open(calib_json) as f:
+        views = json.load(f)["nr_calib_images"]
+    f_, cx, cy, dd = (float(v) for v in calib.params)
+    rerr = calib.mean_reproj_error
+    log(f"[charuco] calibrate_camera CLI {cal_s:.2f} s: f={f_:.4f} cx={cx:.4f} cy={cy:.4f} "
+        f"d={dd:.5e} (truth {CAM}), mean reprojection error {rerr:.4f} px, {views} views")
+    checks = {
+        ">= 55 of 63 corners in >= 40% of frames": good >= 0.4 * n,
+        "mean corner error < 0.25 px": err.mean() < 0.25,
+        "max corner error < 0.6 px": err.max() < 0.6,
+        "one K2 block launch per block of 32 frames": block_launches == math.ceil(n / 32)
+        and nms_launches == 0,
+        ">= 20 active views": views >= 20,
+        "|f - truth| < 1 px": abs(f_ - CAM[0]) < 1.0,
+        "|cx - truth| < 1.5 px and |cy - truth| < 1.5 px":
+            abs(cx - CAM[1]) < 1.5 and abs(cy - CAM[2]) < 1.5,
+        "|d - truth| < 3% of |truth|": abs(dd - CAM[3]) < 0.03 * abs(CAM[3]),
+        "mean reprojection error < 0.15 px": rerr < 0.15,
+        "finite result": all(math.isfinite(v) for v in (f_, cx, cy, dd, rerr)),
+    }
+    for k, ok in checks.items():
+        log(f"[charuco] check {k}: {'ok' if ok else 'FAILED'}")
+    if not all(checks.values()):
+        raise SystemExit("charuco path checks failed")
+    return row, corners
+
+
+def ds3_problem(duration, device):
+    """The DS3 recording cut to ``duration`` seconds, as a spline problem on
+    ``device`` with its truth-seeded initial point: (problem, params, scene).
+    No files: what scripts/sweep_torch_banded.py times the solves on."""
+    import torch
+
+    from openimucameracalibrator_torch.core import spline_estimator as se
+    from openimucameracalibrator_torch.models import cameras
+    from openimucameracalibrator_torch.utils import synthetic
+    from openimucameracalibrator_torch.utils.types import (CameraCalibration, CornerDataset,
+                                                           ImuData, PoseDataset,
+                                                           SplineWeightingData)
+
+    sc = synthetic.make_imu_camera_scene(
+        cameras.get_model("division_undistortion"), CAM, duration=duration, cam_fps=CAM_FPS,
+        imu_rate=IMU_RATE, time_offset=TIME_OFFSET, line_delay=LINE_DELAY, seed=7,
+        device=device)
+    corners = CornerDataset(sc.frame_times, sc.observations, sc.obs_valid, sc.board.points,
+                            sc.image_size, CAM_FPS)
+    imu = ImuData(sc.imu_times, sc.accel, sc.gyro)
+    p = se.build_problem(corners, CameraCalibration(sc.model.name, sc.cam_params,
+                                                    sc.image_size, 0.0), imu,
+                         SplineWeightingData(cam_fps=CAM_FPS, **SEW), TIME_OFFSET,
+                         rolling_shutter=True, device=device)
+    poses = PoseDataset(sc.frame_times, sc.q_w_c, sc.t_w_c, np.ones(len(sc.frame_times), bool),
+                        sc.board.points)
+    params = se.init_spline_params(poses, sc.q_i_c, sc.t_i_c, p, imu,
+                                   pose_time_offset=TIME_OFFSET, device=device)
+    params["line_delay"] = torch.tensor([LINE_DELAY], dtype=params["line_delay"].dtype,
+                                        device=device)
+    return p, params, sc
+
+
+def stage8_setup(torch, device, tmp, duration=DURATION):
+    """The DS3-scale scene (``duration`` seconds) on the card, its stage-8
+    artifacts in ``tmp``, the spline problem, its chunk plan, and the fast
+    linearizer with the problem's initial point (``lin(params0)`` hands K1
+    the main path's inputs)."""
     import types
 
     from openimucameracalibrator_torch.apps.estimate_imu_to_camera_rotation import \
@@ -708,7 +1033,7 @@ def stage8_setup(torch, device, tmp):
 
     t0 = time.perf_counter()
     scene = synthetic.make_imu_camera_scene(
-        cameras.get_model("division_undistortion"), CAM, duration=DURATION,
+        cameras.get_model("division_undistortion"), CAM, duration=duration,
         cam_fps=CAM_FPS, imu_rate=IMU_RATE, image_size=(960, 540), noise_px=0.2,
         time_offset=TIME_OFFSET, line_delay=LINE_DELAY, seed=7, device=device)
     torch.cuda.synchronize()
@@ -717,7 +1042,8 @@ def stage8_setup(torch, device, tmp):
                                           init_rot_err=INIT_ROT_ERR,
                                           init_time_err=INIT_TIME_ERR)
     corners = io.load_corners(paths["input_corners"])
-    log(f"[scene] {len(scene.frame_times)} views, {int(scene.obs_valid.sum())} valid of "
+    log(f"[scene] {duration:.0f} s: {len(scene.frame_times)} views, "
+        f"{int(scene.obs_valid.sum())} valid of "
         f"{scene.obs_valid.size} observations, {len(scene.imu_times)} IMU samples; "
         f"rendered in {t1 - t0:.2f} s, artifacts written in {time.perf_counter() - t1:.2f} s")
     imu = ImuData(times=scene.imu_times, accel=scene.accel, gyro=scene.gyro)
@@ -760,10 +1086,10 @@ def main():
     from openimucameracalibrator_torch.core import (board_extractor, imu_cam_rotation,
                                                     imu_camera_calibrator, pose_estimator)
     from openimucameracalibrator_torch.core import spline_estimator as se
-    from openimucameracalibrator_torch.detect import checkerboard, kernels, render
+    from openimucameracalibrator_torch.detect import checkerboard, kernels, render, video
     from openimucameracalibrator_torch.models import cameras
     from openimucameracalibrator_torch.ops import lie
-    from openimucameracalibrator_torch.solver import gram
+    from openimucameracalibrator_torch.solver import banded, gram, lm
     from openimucameracalibrator_torch.utils import io, precision, recorded, synthetic
 
     t_start = time.perf_counter()
@@ -832,6 +1158,9 @@ def main():
     # One linearization of the same problem at its initial point.
     lin_ms = cuda_ms(lambda: lin(params0), warm=2, reps=5)
     log(f"[main] linearize {lin_ms:.2f} ms (CUDA events, mean of 5, D={D})")
+    torch.cuda.empty_cache()
+
+    banded_counts = banded_phase(torch, (se, banded, lm, gram, cli, io, lie), tmp)
 
     times, frames = render_phase(torch, recorded, render, synthetic, device)
     k2_row = k2_phase(torch, kernels, frames[0])
@@ -839,11 +1168,16 @@ def main():
         torch, (board_extractor, checkerboard, kernels, io, cal_cli), times, frames, tmp)
     del frames
 
-    pipeline_counts, pipeline_checked, k2_row["launches_pipeline"] = pipeline_phase(
+    block_row, charuco_corners = charuco_phase(
+        torch, (board_extractor, video, kernels, io, cal_cli, recorded, synthetic, cameras, lie),
+        tmp)
+
+    pipeline_counts, pipeline_checked, k2_pipeline = pipeline_phase(
         torch, (run_cal, imu_camera_calibrator, pose_estimator, imu_cam_rotation, se, gram,
-                kernels, io, lie, synthetic, cameras), st,
-        os.path.join(tmp, "radon_corners.uson"), tmp)
+                kernels, io, lie, synthetic, cameras), st, charuco_corners, tmp)
+    k2_row["launches_pipeline"], block_row["launches_pipeline"] = k2_pipeline
     for row in rows:
+        row["launches_banded"] = banded_counts.get(row["tag"], 0)
         row["launches_pipeline"] = pipeline_counts.get(row["tag"], 0)
         seen = pipeline_checked[row["tag"]]
         row["max_abs_err_pipeline"] = seen["max_abs_err"]
@@ -852,7 +1186,7 @@ def main():
     shutil.rmtree(tmp, ignore_errors=True)
     for row in rows:
         row.pop("tag")
-    rows.append(k2_row)
+    rows += [k2_row, block_row]
     log(json.dumps({"kernels": rows}))
     log(f"[done] {time.perf_counter() - t_start:.1f} s on {name}")
     log(smi)

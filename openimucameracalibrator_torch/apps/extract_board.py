@@ -1,13 +1,15 @@
 """CLI: extract board corners from a video or image folder.
 
-Port of ``apps/extract_board.py`` of the JAX package, with the same flags
-plus ``--device`` (default ``cuda``; without a CUDA device the run raises
-unless ``--device cpu`` is given). Only the radon (checkerboard) board is
-ported; ``--detector_kernel`` accepts only ``auto``: the CUDA kernel on
-the card, its plain version on the CPU.
+Port of ``apps/extract_board.py`` of the JAX package (the reference's
+extract_board_to_json), with the same flags plus ``--device`` (default
+``cuda``; without a CUDA device the run raises unless ``--device cpu`` is
+given): charuco (default, the batched video detector), radon and apriltag
+boards, and the detector-parameter file. ``--detector_kernel`` accepts
+only ``auto``: the CUDA kernel on the card, its plain version on the CPU.
+Video files need cv2 to decode; image folders are read with PIL.
 
     python -m openimucameracalibrator_torch.apps.extract_board \\
-        --input_path frames/ --save_corners_to_path corners.uson --board_type radon
+        --input_path frames/ --save_corners_to_path corners.uson
 """
 
 from __future__ import annotations
@@ -35,7 +37,9 @@ def build_parser(p: argparse.ArgumentParser | None = None):
                    help="corner-response implementation: the CUDA kernel on the card, "
                         "its plain version on the CPU")
     p.add_argument("--aruco_detector_params", default="",
-                   help="detector-parameter file (not ported yet)")
+                   help="detector-parameter file, OpenCV-YAML or json "
+                        "(reference charuco_detector_params.yml schema, "
+                        "utils.cc:43-75; see detect/params.py)")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default cuda)")
     return p

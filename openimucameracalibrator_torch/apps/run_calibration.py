@@ -25,18 +25,21 @@ times share one clock before the offset search.
 
 With ``--workspace``, corner files found there are used instead of
 detecting again (``--recompute_corners`` forces detection), as the
-reference's extract_board_to_json.cc:60-64 does. Detection from a video
-needs cv2; a workspace seeded with ``cam_corners.uson`` and
-``imu_cam_corners.uson`` (``utils/io.save_corners``) runs without it.
+reference's extract_board_to_json.cc:60-64 does. Every board of the JAX
+CLI (charuco by default, radon, apriltag) goes through the native
+detectors of ``core/board_extractor.py``. Decoding a video needs cv2, and
+the run says so without it; a workspace seeded with ``cam_corners.uson``
+and ``imu_cam_corners.uson`` (``utils/io.save_corners`` of what
+``board_extractor.extract_board`` found on in-memory (time, gray) frames)
+runs without it. The OpenCV detection backend needs cv2 too.
 
 Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP.md queue 1 item: boards other than radon and the OpenCV detector
-(item 10, raised by ``core/board_extractor.py``), GoPro MP4 telemetry
-(item 11), the multi-process flags (item 12).
+ROADMAP.md queue 1 item: GoPro MP4 telemetry (item 11), the multi-process
+flags (item 12).
 
     python -m openimucameracalibrator_torch.apps.run_calibration \\
         --path_calib_dataset data --telemetry_json data/telemetry.json \\
-        --board_type radon --workspace ws
+        --workspace ws
 """
 
 from __future__ import annotations
@@ -77,7 +80,7 @@ def build_parser():
                         "kernel, a CPU frame its plain version")
     p.add_argument("--detector_backend", default="native", choices=["native", "opencv"])
     p.add_argument("--aruco_detector_params", default="",
-                   help="detector-parameter file (not ported yet)")
+                   help="detector-parameter file, OpenCV-YAML or json (see detect/params.py)")
     p.add_argument("--optimize_board_points", action="store_true",
                    help="refine board points w/ empirical covariance "
                         "(reference OptimizeBoardPoints, pose_estimator.cc:193-224)")

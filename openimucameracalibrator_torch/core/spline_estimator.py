@@ -987,10 +987,18 @@ def enable_board_points(p: SplineProblem, *, point_prior_std: float = 1e-3,
                       pt_prior_sqrt_info=torch.as_tensor(W, dtype=dtype, device=device))
 
 
-# Tangent dimension from which the JAX package switches to its banded solve
-# on a TPU (a v5e crossover, not an H100 measurement). Kept as a parameter
-# of make_solve_fn until the banded solver is ported and swept on the card.
-BANDED_MIN_DIM = 25000
+# Tangent dimension from which "auto" takes the banded solve
+# (solver/banded.py): the crossover of scripts/sweep_torch_banded.py on an
+# NVIDIA H100 80GB HBM3 at 700.00 W (float32, lambda 1e-4, best of 5,
+# CUDA events; PERF.md, PR 6), dense lm._solve_damped against banded ms:
+#   D =  5,723:   6.7 vs  38.1     D = 22,700: 129.9 vs 143.2
+#   D = 11,381:  24.5 vs  88.5     D = 28,358: 228.5 vs 195.6
+#   D = 17,039:  63.9 vs 124.4     D = 34,016: 372.5 vs 244.6
+# The dense Cholesky grows ~D^2.5 here; the banded solve is a host loop of
+# small launches over slabs, ~linear in D. An earlier run of the same
+# script put 28,358 at a tie (226.8 vs 227.1 ms): re-sweep when either
+# solve changes.
+BANDED_MIN_DIM = 24324
 
 
 def make_solve_fn(p: SplineProblem, layout, solver: str = "auto",
@@ -998,15 +1006,25 @@ def make_solve_fn(p: SplineProblem, layout, solver: str = "auto",
     """Damped-solve callable for lm.lm_optimize; None selects the dense
     Jacobi-equilibrated Cholesky of ``solver/lm.py``.
 
-    Only the dense solve is ported: "banded", or "auto" at
-    ``D >= banded_min_dim``, raises NotImplementedError.
+    "banded" (or "auto" at ``D >= banded_min_dim``):
+    block-tridiagonal-over-slabs + arrowhead Schur
+    solve (solver/banded.py) when the problem's measurement windows admit
+    a slab decomposition. Returns None (the dense solve) for "dense", for
+    "auto" below ``banded_min_dim``, and for "auto" when no decomposition
+    exists; "banded" without one raises ValueError.
     """
     if solver == "dense" or (solver == "auto" and layout.tangent_dim < banded_min_dim):
         return None
     if solver in ("auto", "banded"):
-        raise NotImplementedError(
-            f"the banded solver (solver/banded.py) is not ported yet (ROADMAP.md queue 1, "
-            f"item 7); D={layout.tangent_dim}: use solver='dense' or raise banded_min_dim")
+        from openimucameracalibrator_torch.solver import banded as banded_mod
+
+        struct = banded_mod.from_problem(layout, p, ORDER)
+        if struct is not None:
+            return banded_mod.make_banded_solver(struct)
+        if solver == "banded":
+            raise ValueError("problem admits no slab decomposition; use "
+                             "solver='auto' or 'dense'")
+        return None
     raise ValueError(f"unknown solver {solver!r}")
 
 
@@ -1041,7 +1059,8 @@ def optimize_stages(p: SplineProblem, params0: dict, stages,
     solution. ``checkpoint_dir`` snapshots each completed stage; on rerun
     completed stages are restored (with their true convergence status) when
     the fingerprint of problem, schedule, parameters and solver settings
-    matches, and re-solved otherwise.
+    matches, and re-solved otherwise. ``solver`` chooses the damped solve
+    (:func:`make_solve_fn`).
     """
     from openimucameracalibrator_torch.utils import checkpoint as ckpt
 

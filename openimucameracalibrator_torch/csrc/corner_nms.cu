@@ -42,6 +42,16 @@
 // other orders, which moves resp by a few ulp and keep only at exact
 // plateaus.
 //
+// Block mode (response only). The video path wants the response of a block
+// of F frames and no mask (the JAX package's video.py:119 vmaps the
+// response over the block): oicc_corner_response_block_f32 runs the same
+// kernel with a frame axis (grid z = frame) and KEEP = false, which drops
+// the NMS halo (n = 0, so no 1.41x recomputation), the shared-memory
+// response region and the max passes: each thread writes its strip of
+// response pixels straight to device memory. At r = 6 it is compiled for
+// that radius (strips of 4 rows, since 32 rows do not split into 5s); any
+// other radius runs the generic instantiation.
+//
 // Bound on an H100 SXM at 960x540 (3.35 TB/s HBM, 67 TFLOP/s fp32):
 // bytes 4 read + 8 written per pixel = 6.2 MB -> ~1.9 us; operations
 // 8 * 36 * 2 + ~46 = 622 fp32 operations per pixel = 0.32 GFLOP ->
@@ -58,9 +68,14 @@ constexpr int TW = 64;         // output tile width
 constexpr int TH = 32;         // output tile height
 constexpr int THREADS = 288;   // 9 warps
 constexpr int QUADS = 8;       // 2 prototypes x 4 quadrant kernels
-constexpr int STRIP = 5;       // response pixels per strip (specialised kernel)
 constexpr int SPEC_R = 6;      // the (radius, nms radius) every caller passes
 constexpr int SPEC_N = 4;
+
+// Response pixels per strip of the specialised kernel: 5 when the response
+// region's TH + 2n rows split into 5s (n = 4: 40 rows), else 4.
+__host__ __device__ constexpr int strip_rows(int nc) {
+  return (TH + 2 * nc) % 5 == 0 ? 5 : 4;
+}
 
 // Tap (dy, dx) belongs to quadrant kernel q = 4 * prototype + {a, b, c, d}.
 // Prototype 0 (angle 0): d1 = dy, d2 = -dx; prototype 1 (angle pi/4):
@@ -95,23 +110,27 @@ __device__ __forceinline__ float pixel_response(const float* acc) {
 }
 
 // RC = NC = 0: the generic instantiation (radius and nms from the
-// arguments); otherwise compiled for (RC, NC).
-template <int RC, int NC>
+// arguments); otherwise compiled for (RC, NC). KEEP = false is the block
+// mode: response only, no NMS halo (n = 0), frame blockIdx.z of the block.
+template <int RC, int NC, bool KEEP>
 __global__ void __launch_bounds__(THREADS, 2)
 corner_nms_kernel(const float* __restrict__ img, const Taps<RC> taps,
                   const float* __restrict__ wdev, float* __restrict__ resp,
                   float* __restrict__ keep, int H, int W, int radius, int nms) {
   extern __shared__ float smem[];
   const int R = RC > 0 ? RC : radius;
-  const int N = RC > 0 ? NC : nms;
+  const int N = RC > 0 ? NC : (KEEP ? nms : 0);
   const int IW = TW + 2 * (R + N), IH = TH + 2 * (R + N);  // staged input
   const int RW = TW + 2 * N, RH = TH + 2 * N;              // response region
   float* in_s = smem;             // IH x IW
-  float* rs = in_s + IH * IW;     // RH x RW
-  float* rm = rs + RH * RW;       // RH x TW (row-wise max)
+  float* rs = in_s + IH * IW;     // RH x RW (KEEP only)
+  float* rm = rs + RH * RW;       // RH x TW (row-wise max; KEEP only)
 
   const int tid = threadIdx.x;
   const int y0 = blockIdx.y * TH, x0 = blockIdx.x * TW;
+  const size_t plane = (size_t)blockIdx.z * H * W;
+  img += plane;
+  resp += plane;
 
   for (int i = tid; i < IH * IW; i += THREADS) {
     const int gy = y0 - R - N + i / IW, gx = x0 - R - N + i % IW;
@@ -122,6 +141,7 @@ corner_nms_kernel(const float* __restrict__ img, const Taps<RC> taps,
   // Response at region pixel (a, b) = image pixel (y0 - N + a, x0 - N + b);
   // its tap (dy, dx) reads in_s[a + R + dy][b + R + dx].
   if constexpr (RC > 0) {
+    constexpr int STRIP = strip_rows(NC);
     static_assert((TH + 2 * NC) % STRIP == 0, "strips must tile the response region");
     constexpr int RWc = TW + 2 * NC, IWc = TW + 2 * (RC + NC);
     constexpr int ITEMS = RWc * ((TH + 2 * NC) / STRIP);
@@ -156,7 +176,11 @@ corner_nms_kernel(const float* __restrict__ img, const Taps<RC> taps,
       for (int p = 0; p < STRIP; ++p) {
         const int gy = y0 - NC + a0 + p, gx = x0 - NC + b;
         const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
-        rs[(a0 + p) * RWc + b] = inside ? pixel_response(acc[p]) : -FLT_MAX;
+        if constexpr (KEEP) {
+          rs[(a0 + p) * RWc + b] = inside ? pixel_response(acc[p]) : -FLT_MAX;
+        } else if (inside) {
+          resp[(size_t)gy * W + gx] = pixel_response(acc[p]);
+        }
       }
     }
   } else {
@@ -173,10 +197,12 @@ corner_nms_kernel(const float* __restrict__ img, const Taps<RC> taps,
               if (in_quad(q, dy, dx))
                 acc[q] = fmaf(__ldg(wdev + t++), in_s[(a + R + dy) * IW + b + R + dx], acc[q]);
         out = pixel_response(acc);
+        if (!KEEP) resp[(size_t)gy * W + gx] = out;
       }
-      rs[i] = out;
+      if (KEEP) rs[i] = out;
     }
   }
+  if constexpr (!KEEP) return;
   __syncthreads();
 
   const int win = 2 * N + 1;
@@ -197,28 +223,31 @@ corner_nms_kernel(const float* __restrict__ img, const Taps<RC> taps,
       for (int d = 1; d < win; ++d) m = fmaxf(m, rm[(ii + d) * TW + j]);
       const float v = rs[(ii + N) * RW + (j + N)];
       resp[(size_t)gy * W + gx] = v;
-      keep[(size_t)gy * W + gx] = (v >= m) ? 1.f : 0.f;
+      keep[plane + (size_t)gy * W + gx] = (v >= m) ? 1.f : 0.f;
     }
   }
 }
 
-size_t smem_bytes(int radius, int nms) {
+// keep = false: the block mode, which stages only the input (n = 0).
+size_t smem_bytes(int radius, int nms, bool keep) {
+  if (!keep) nms = 0;
   const size_t IW = TW + 2 * (radius + nms), IH = TH + 2 * (radius + nms);
   const size_t RW = TW + 2 * nms, RH = TH + 2 * nms;
-  return (IW * IH + RW * RH + RH * TW) * sizeof(float);
+  return (IW * IH + (keep ? RW * RH + RH * TW : 0)) * sizeof(float);
 }
 
-template <int RC, int NC>
+template <int RC, int NC, bool KEEP>
 int launch(const float* img, const Taps<RC>& taps, const float* wdev, float* resp,
-           float* keep, int H, int W, int radius, int nms, cudaStream_t stream) {
-  const size_t smem = smem_bytes(radius, nms);
+           float* keep, int F, int H, int W, int radius, int nms, cudaStream_t stream) {
+  const size_t smem = smem_bytes(radius, nms, KEEP);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        corner_nms_kernel<RC, NC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        corner_nms_kernel<RC, NC, KEEP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH);
-  corner_nms_kernel<RC, NC><<<grid, THREADS, smem, stream>>>(
+  const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, F);
+  corner_nms_kernel<RC, NC, KEEP><<<grid, THREADS, smem, stream>>>(
       img, taps, wdev, resp, keep, H, W, radius, nms);
   return (int)cudaGetLastError();
 }
@@ -229,7 +258,12 @@ extern "C" {
 
 // Dynamic shared memory one block needs for these radii.
 long long oicc_corner_nms_smem_bytes(int radius, int nms) {
-  return (long long)smem_bytes(radius, nms);
+  return (long long)smem_bytes(radius, nms, true);
+}
+
+// The same for the block mode (response only).
+long long oicc_corner_response_smem_bytes(int radius) {
+  return (long long)smem_bytes(radius, 0, false);
 }
 
 // 1 when (radius, nms) runs the kernel compiled for those sizes, 0 when it
@@ -250,9 +284,26 @@ int oicc_corner_nms_f32(const float* img, const float* w_host, const float* w_de
   if (oicc_corner_nms_specialised(radius, nms)) {
     Taps<SPEC_R> taps;
     std::memcpy(taps.w, w_host, sizeof(taps.w));
-    return launch<SPEC_R, SPEC_N>(img, taps, w_dev, resp, keep, H, W, radius, nms, s);
+    return launch<SPEC_R, SPEC_N, true>(img, taps, w_dev, resp, keep, 1, H, W, radius, nms, s);
   }
-  return launch<0, 0>(img, Taps<0>{}, w_dev, resp, keep, H, W, radius, nms, s);
+  return launch<0, 0, true>(img, Taps<0>{}, w_dev, resp, keep, 1, H, W, radius, nms, s);
+}
+
+// The block mode: the response of each of F contiguous H x W frames of img
+// into resp (F x H x W), no mask; one launch for the block. radius 6 runs
+// the instantiation compiled for it, any other the generic one.
+int oicc_corner_response_block_f32(const float* img, const float* w_host, const float* w_dev,
+                                   float* resp, int F, int H, int W, int radius,
+                                   void* stream) {
+  if (F <= 0 || F > 65535 || H <= 0 || W <= 0 || radius <= 0)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (radius == SPEC_R) {
+    Taps<SPEC_R> taps;
+    std::memcpy(taps.w, w_host, sizeof(taps.w));
+    return launch<SPEC_R, 0, false>(img, taps, w_dev, resp, nullptr, F, H, W, radius, 0, s);
+  }
+  return launch<0, 0, false>(img, Taps<0>{}, w_dev, resp, nullptr, F, H, W, radius, 0, s);
 }
 
 const char* oicc_error_string(int err) {

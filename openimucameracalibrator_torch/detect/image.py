@@ -25,14 +25,22 @@ import torch.nn.functional as F
 # Filtering / thresholding
 # ---------------------------------------------------------------------------
 
+def _pad_replicate(img: torch.Tensor, r: int) -> torch.Tensor:
+    """Edge-replicated padding by r of the last two axes of (..., H, W)."""
+    h, w = img.shape[-2:]
+    pad = F.pad(img.reshape(-1, 1, h, w), (r, r, r, r), mode="replicate")
+    return pad.reshape(img.shape[:-2] + pad.shape[-2:])
+
+
 def box_mean(img: torch.Tensor, radius: int) -> torch.Tensor:
     """Local mean over a (2r+1)^2 window with edge-replicated borders
-    (two separable windowed sums)."""
+    (two separable windowed sums), of a frame (H, W) or of each frame of
+    (..., H, W)."""
     r = int(radius)
     k = 2 * r + 1
-    pad = F.pad(img.to(torch.float32)[None, None], (r, r, r, r), mode="replicate")[0, 0]
-    s = pad.unfold(0, k, 1).sum(-1)
-    s = s.unfold(1, k, 1).sum(-1)
+    pad = _pad_replicate(img.to(torch.float32), r)
+    s = pad.unfold(-2, k, 1).sum(-1)
+    s = s.unfold(-1, k, 1).sum(-1)
     return s / (k * k)
 
 
@@ -44,11 +52,11 @@ def adaptive_threshold(img: torch.Tensor, radius: int = 10, c: float = 7.0):
 
 
 def gradients(img: torch.Tensor):
-    """(gx, gy) central-difference gradients, edge-replicated."""
-    f = img.to(torch.float32)
-    fp = F.pad(f[None, None], (1, 1, 1, 1), mode="replicate")[0, 0]
-    gx = (fp[1:-1, 2:] - fp[1:-1, :-2]) * 0.5
-    gy = (fp[2:, 1:-1] - fp[:-2, 1:-1]) * 0.5
+    """(gx, gy) central-difference gradients, edge-replicated, of (H, W)
+    or of each frame of (..., H, W)."""
+    fp = _pad_replicate(img.to(torch.float32), 1)
+    gx = (fp[..., 1:-1, 2:] - fp[..., 1:-1, :-2]) * 0.5
+    gy = (fp[..., 2:, 1:-1] - fp[..., :-2, 1:-1]) * 0.5
     return gx, gy
 
 
@@ -75,12 +83,36 @@ def bilinear_sample(img: torch.Tensor, u: torch.Tensor, v: torch.Tensor):
             + i10 * (1 - du) * dv + i11 * du * dv)
 
 
+def bilinear_sample_frames(imgs: torch.Tensor, u: torch.Tensor, v: torch.Tensor):
+    """:func:`bilinear_sample` of each frame of imgs (F, H, W, ...) at its
+    own coords u, v (F, ...): the JAX package's ``vmap`` over frames."""
+    h, w = imgs.shape[1:3]
+    u = torch.clamp(u, 0.0, w - 1.001)
+    v = torch.clamp(v, 0.0, h - 1.001)
+    u0 = torch.floor(u).to(torch.int64)
+    v0 = torch.floor(v).to(torch.int64)
+    du = u - u0
+    dv = v - v0
+    if imgs.dim() > 3:
+        du, dv = du[..., None], dv[..., None]
+    f = torch.arange(imgs.shape[0], device=imgs.device).reshape((-1,) + (1,) * (u.dim() - 1))
+    i00 = imgs[f, v0, u0]
+    i01 = imgs[f, v0, u0 + 1]
+    i10 = imgs[f, v0 + 1, u0]
+    i11 = imgs[f, v0 + 1, u0 + 1]
+    return (i00 * (1 - du) * (1 - dv) + i01 * du * (1 - dv)
+            + i10 * (1 - du) * dv + i11 * du * dv)
+
+
 def sample_homography_grid(img: torch.Tensor, H: torch.Tensor, nx: int, ny: int,
                            oversample: int = 3, margin: float = 0.0):
     """Mean intensity of an (ny, nx) cell grid mapped by homography H
     (unit square -> image pixels). Each cell is averaged over
     oversample^2 interior samples; ``margin`` ignores that fraction of
-    the cell on every side. Returns (ny, nx); coordinates are computed
+    the cell on every side. Returns (ny, nx), or (..., ny, nx) for a
+    batch of homographies H (..., 3, 3) (the JAX package's ``vmap`` over
+    H); for a block of frames img (F, H, W), H is (F, ..., 3, 3) and each
+    frame is sampled under its own homographies. Coordinates are computed
     in H's dtype."""
     s = oversample
     dev, dt = H.device, H.dtype
@@ -92,11 +124,13 @@ def sample_homography_grid(img: torch.Tensor, H: torch.Tensor, nx: int, ny: int,
                                    * (1.0 - 2.0 * margin)) / ny
     gy, gx = torch.meshgrid(cy, cx, indexing="ij")
     ones = torch.ones_like(gx)
-    pts = torch.stack([gx, gy, ones], dim=-1) @ H.T
+    grid = torch.stack([gx, gy, ones], dim=-1)
+    pts = grid @ H.T if H.dim() == 2 else grid @ H.mT[..., None, :, :]
     u = pts[..., 0] / pts[..., 2]
     v = pts[..., 1] / pts[..., 2]
-    vals = bilinear_sample(img.to(torch.float32), u, v)
-    return vals.reshape(ny, s, nx, s).mean(dim=(1, 3))
+    sample = bilinear_sample if img.dim() == 2 else bilinear_sample_frames
+    vals = sample(img.to(torch.float32), u, v)
+    return vals.reshape(vals.shape[:-2] + (ny, s, nx, s)).mean(dim=(-3, -1))
 
 
 # ---------------------------------------------------------------------------
@@ -120,7 +154,7 @@ def _solve_step(A, b, c, r: float):
     sol = torch.linalg.solve_ex(A + 1e-9 * eye, b[..., None])[0][..., 0]
     ok = (torch.isfinite(sol).all(-1)
           & (torch.linalg.vector_norm(sol - c, dim=-1) < (r + 1.0)))
-    return torch.where(ok[:, None], sol, c)
+    return torch.where(ok[..., None], sol, c)
 
 
 def refine_corners_subpix(img: torch.Tensor, corners: torch.Tensor,
@@ -155,7 +189,8 @@ def refine_corners_subpix(img: torch.Tensor, corners: torch.Tensor,
 
 
 def corner_refine_fields(img: torch.Tensor, win: int = 5) -> torch.Tensor:
-    """(H, W, 5) correlation fields for conv-form subpixel refinement.
+    """(H, W, 5) correlation fields for conv-form subpixel refinement, or
+    (F, H, W, 5) for a block of frames (F, H, W).
 
     The window sums of :func:`refine_corners_subpix` are
     cross-correlations of the fields (gx^2, gx gy, gy^2, gx^2 x + gx gy y,
@@ -164,32 +199,34 @@ def corner_refine_fields(img: torch.Tensor, win: int = 5) -> torch.Tensor:
     (:func:`refine_corners_from_fields`).
     """
     gx, gy = gradients(img)
-    h, w = img.shape
+    h, w = img.shape[-2:]
     X = torch.arange(w, dtype=torch.float32, device=img.device)[None, :]
     Y = torch.arange(h, dtype=torch.float32, device=img.device)[:, None]
     gxx, gxy, gyy = gx * gx, gx * gy, gy * gy
-    f = torch.stack([gxx, gxy, gyy, gxx * X + gxy * Y, gxy * X + gyy * Y], dim=0)
+    f = torch.stack([gxx, gxy, gyy, gxx * X + gxy * Y, gxy * X + gyy * Y], dim=-3)
     r = int(win)
     dy, dx = np.meshgrid(np.arange(-r, r + 1), np.arange(-r, r + 1), indexing="ij")
     wgt = np.exp(-(dx * dx + dy * dy) / (2.0 * (r / 2.0) ** 2)).astype(np.float32)
     k = torch.as_tensor(np.broadcast_to(wgt, (5, 1) + wgt.shape).copy(), device=img.device)
-    out = F.conv2d(f[None], k, padding=r, groups=5)[0]
-    return out.permute(1, 2, 0)
+    out = F.conv2d(f.reshape(-1, 5, h, w), k, padding=r, groups=5)
+    return out.reshape(f.shape).movedim(-3, -1)
 
 
 def refine_corners_from_fields(fields: torch.Tensor, corners: torch.Tensor,
                                win: int = 5, iters: int = 8) -> torch.Tensor:
     """Subpixel refinement using precomputed :func:`corner_refine_fields`.
 
-    corners: (M, 2) float (x, y). Returns (M, 2) refined; steps farther
+    corners: (M, 2) float (x, y), or (F, M, 2) with fields (F, H, W, 5)
+    of a block of frames. Returns the same shape refined; steps farther
     than win+1 from the current iterate are rejected."""
     c = corners.to(device=fields.device, dtype=torch.float32)
-    if c.shape[0] == 0:
+    if c.shape[-2] == 0:
         return c
+    sample = bilinear_sample if fields.dim() == 3 else bilinear_sample_frames
     for _ in range(iters):
-        vals = bilinear_sample(fields, c[:, 0], c[:, 1])  # (M, 5)
-        A = torch.stack([vals[:, 0:2], vals[:, 1:3]], -2)
-        c = _solve_step(A, vals[:, 3:5], c, float(win))
+        vals = sample(fields, c[..., 0], c[..., 1])  # (..., M, 5)
+        A = torch.stack([vals[..., 0:2], vals[..., 1:3]], -2)
+        c = _solve_step(A, vals[..., 3:5], c, float(win))
     return c
 
 
@@ -226,13 +263,22 @@ def _prototype_bank(radius: int):
 
 
 def corner_response(img: torch.Tensor, radius: int = 6):
-    """Checkerboard-corner likelihood map (H, W) float32: the plain version
-    on a CPU tensor, the CUDA kernel on a CUDA tensor."""
+    """Checkerboard-corner likelihood map float32 of a frame (H, W) or of a
+    block of frames (F, H, W), same shape: the plain version on a CPU
+    tensor, the CUDA kernel's block mode (response only, one launch per
+    call) on a CUDA tensor."""
     from openimucameracalibrator_torch.detect import kernels
 
+    if img.dim() not in (2, 3):
+        raise ValueError(f"corner_response: img must be (H, W) or (F, H, W), "
+                         f"got {tuple(img.shape)}")
     if img.device.type == "cpu":
+        if img.dim() == 3:
+            return kernels.corner_response_block_plain(img, radius)
         return kernels.corner_response_nms_plain(img, radius)[0]
-    return kernels.corner_response_nms(img.to(torch.float32).contiguous(), radius)[0]
+    block = img.to(torch.float32).contiguous()
+    resp = kernels.corner_response_block(block if img.dim() == 3 else block[None], radius)
+    return resp if img.dim() == 3 else resp[0]
 
 
 def find_corner_candidates(img: torch.Tensor, max_corners: int = 512,

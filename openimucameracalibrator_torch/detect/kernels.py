@@ -12,6 +12,15 @@ local maxima over a (2n+1)^2 window, in one pass:
   with the 8 quadrant kernels, the response reduction, ``F.max_pool2d``),
   which serves CPU tensors and is what the kernel is held against.
 
+The block mode, :func:`corner_response_block`, is the same kernel over an
+(F, H, W) block of frames with the response alone (no mask, no NMS halo),
+in one launch: what the video path (``detect/video.py``) and the charuco
+response check need. Its plain version :func:`corner_response_block_plain`
+is the first half of the plain version above over the F frames (one
+``F.conv2d`` with the frames as the batch). Block launches count in
+``corner_response_block.launches``, apart from
+``corner_response_nms.launches``.
+
 :func:`find_corner_candidates_kernel` (the counterpart of
 ``find_corner_candidates_pallas``) thresholds and takes the top K outside
 the kernel, with a stable sort so that equal scores keep the lower flat
@@ -59,10 +68,11 @@ def _tap_tables(radius: int):
 # ---------------------------------------------------------------------------
 
 def _response_from_quadrants(out: torch.Tensor) -> torch.Tensor:
-    """(8, H, W) quadrant correlations -> (H, W) response, clamped >= 0."""
+    """(..., 8, H, W) quadrant correlations -> (..., H, W) response,
+    clamped >= 0."""
     resp = None
     for p in range(2):
-        a, b, c, d = out[4 * p], out[4 * p + 1], out[4 * p + 2], out[4 * p + 3]
+        a, b, c, d = (out[..., 4 * p + q, :, :] for q in range(4))
         mu = 0.25 * (a + b + c + d)
         r1 = torch.minimum(torch.minimum(a, b) - mu, mu - torch.maximum(c, d))
         r2 = torch.minimum(mu - torch.maximum(a, b), torch.minimum(c, d) - mu)
@@ -71,13 +81,19 @@ def _response_from_quadrants(out: torch.Tensor) -> torch.Tensor:
     return torch.clamp(resp, min=0.0)
 
 
+def corner_response_block_plain(imgs: torch.Tensor, radius: int = 6) -> torch.Tensor:
+    """Plain PyTorch version of :func:`corner_response_block`, any device:
+    the response (F, H, W) f32 of each frame of ``imgs`` (F, H, W)."""
+    bank = torch.as_tensor(image_mod._prototype_bank(radius), device=imgs.device)
+    k = bank.reshape(8, 1, bank.shape[-2], bank.shape[-1])
+    out = F.conv2d(imgs.to(torch.float32)[:, None], k, padding=radius)
+    return _response_from_quadrants(out)
+
+
 def corner_response_nms_plain(img: torch.Tensor, radius: int = 6, nms_radius: int = 4):
     """Plain PyTorch version of :func:`corner_response_nms`, any device:
     ``(resp (H, W) f32, keep (H, W) f32)``."""
-    bank = torch.as_tensor(image_mod._prototype_bank(radius), device=img.device)
-    k = bank.reshape(8, 1, bank.shape[-2], bank.shape[-1])
-    out = F.conv2d(img.to(torch.float32)[None, None], k, padding=radius)[0]
-    resp = _response_from_quadrants(out)
+    resp = corner_response_block_plain(img[None], radius)[0]
     n = nms_radius
     local_max = F.max_pool2d(resp[None, None], 2 * n + 1, stride=1, padding=n)[0, 0]
     return resp, (resp >= local_max).to(torch.float32)
@@ -91,6 +107,9 @@ _SYMBOLS = {
     "oicc_corner_nms_f32": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
                             ctypes.c_int),
     "oicc_corner_nms_smem_bytes": ([ctypes.c_int] * 2, ctypes.c_longlong),
+    "oicc_corner_response_block_f32": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+                                       + [ctypes.c_void_p], ctypes.c_int),
+    "oicc_corner_response_smem_bytes": ([ctypes.c_int], ctypes.c_longlong),
 }
 _MAX_SMEM = 232448  # bytes of shared memory one block may use on Hopper
 
@@ -172,8 +191,53 @@ def corner_response_nms(img: torch.Tensor, radius: int = 6, nms_radius: int = 4)
 corner_response_nms.launches = 0
 
 
+def corner_response_block(imgs: torch.Tensor, radius: int = 6) -> torch.Tensor:
+    """The corner response (F, H, W) f32 of each frame of ``imgs``
+    (F, H, W), from the CUDA kernel in its block mode: one launch for the
+    block, response only.
+
+    ``imgs`` must be a contiguous 3-D float32 CUDA tensor; anything else
+    raises. Radius 6 runs the kernel compiled for it, any other radius its
+    generic instantiation. Each launch adds one to
+    ``corner_response_block.launches``.
+    """
+    if imgs.device.type != "cuda":
+        raise ValueError(f"corner_response_block: needs a CUDA tensor, got {imgs.device} "
+                         "(use corner_response_block_plain on the CPU)")
+    if imgs.dtype != torch.float32 or imgs.dim() != 3:
+        raise ValueError(f"corner_response_block: imgs must be a 3-D float32 tensor, "
+                         f"got {imgs.dtype} {tuple(imgs.shape)}")
+    if not imgs.is_contiguous():
+        raise ValueError("corner_response_block: imgs must be contiguous")
+    radius = int(radius)
+    if radius < 1:
+        raise ValueError(f"corner_response_block: radius {radius} must be >= 1")
+    lib = build()
+    if lib.lib.oicc_corner_response_smem_bytes(radius) > _MAX_SMEM:
+        raise ValueError(f"corner_response_block: radius {radius} needs more shared memory "
+                         "than a block has")
+    w_host = _packed_taps(radius)
+    w_dev = _device_taps(radius, str(imgs.device))
+    Fn, H, W = imgs.shape
+    resp = torch.empty_like(imgs)
+    if Fn == 0:
+        return resp
+    with torch.cuda.device(imgs.device):
+        stream = torch.cuda.current_stream(imgs.device).cuda_stream
+    err = lib.lib.oicc_corner_response_block_f32(imgs.data_ptr(), w_host.ctypes.data,
+                                                 w_dev.data_ptr(), resp.data_ptr(), Fn, H, W,
+                                                 radius, stream)
+    native.check(lib, err, "corner_response_block")
+    corner_response_block.launches += 1
+    return resp
+
+
+corner_response_block.launches = 0
+
+
 def reset_counts():
     corner_response_nms.launches = 0
+    corner_response_block.launches = 0
 
 
 # ---------------------------------------------------------------------------

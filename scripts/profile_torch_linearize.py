@@ -1,7 +1,8 @@
 """Where the port's DS3-scale LM iteration spends its time on the GPU.
 
-Builds the 60 s DS3 recording of chip_smoke.py on the card, then profiles
-one fused-LM iteration's work (one linearization and one damped solve) with
+Builds the 60 s DS3 recording of chip_smoke.py on the card
+(``chip_smoke.ds3_problem``), then profiles one fused-LM iteration's work
+(one linearization and one damped solve) with
 ``torch.profiler`` and prints:
 
 * the wall time of the linearization and of the solve (CUDA events);
@@ -17,38 +18,18 @@ import os
 import sys
 import time
 
-import numpy as np
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke as cs  # noqa: E402
 from openimucameracalibrator_torch.core import spline_estimator as se  # noqa: E402
-from openimucameracalibrator_torch.models import cameras  # noqa: E402
 from openimucameracalibrator_torch.solver import lm  # noqa: E402
-from openimucameracalibrator_torch.utils import precision, synthetic  # noqa: E402
-from openimucameracalibrator_torch.utils.types import (CameraCalibration,  # noqa: E402
-                                                       CornerDataset, ImuData, PoseDataset,
-                                                       SplineWeightingData)
+from openimucameracalibrator_torch.utils import precision  # noqa: E402
 
 
 def main():
     dev = precision.resolve_device("cuda")
-    sc = synthetic.make_imu_camera_scene(
-        cameras.get_model("division_undistortion"), cs.CAM, duration=cs.DURATION,
-        cam_fps=cs.CAM_FPS, imu_rate=cs.IMU_RATE, time_offset=cs.TIME_OFFSET,
-        line_delay=cs.LINE_DELAY, seed=7, device=dev)
-    corners = CornerDataset(sc.frame_times, sc.observations, sc.obs_valid,
-                            sc.board.points, sc.image_size, cs.CAM_FPS)
-    imu = ImuData(sc.imu_times, sc.accel, sc.gyro)
-    sew = SplineWeightingData(cam_fps=cs.CAM_FPS, **cs.SEW)
-    p = se.build_problem(corners, CameraCalibration(sc.model.name, sc.cam_params,
-                                                    sc.image_size, 0.0), imu, sew,
-                         cs.TIME_OFFSET, rolling_shutter=True, device=dev)
-    poses = PoseDataset(sc.frame_times, sc.q_w_c, sc.t_w_c,
-                        np.ones(len(sc.frame_times), bool),
-                        sc.board.points)
-    params = se.init_spline_params(poses, sc.q_i_c, sc.t_i_c, p, imu,
-                                   pose_time_offset=cs.TIME_OFFSET, device=dev)
+    p, params, _ = cs.ds3_problem(cs.DURATION, dev)
     layout = se.build_layout(p)
     lin, _ = se.make_solver_functions_fast(p, layout)
     mask = layout.free_mask(se.flags_to_fixed(se.DEFAULT_FLAGS), dtype=torch.float32,

@@ -1,5 +1,6 @@
-"""The port's CUDA kernels against their plain versions, and the stage-8
-input stages against the same functions on the CPU, on the card.
+"""The port's CUDA kernels against their plain versions (K1, K2 and K2's
+block mode), and the stage-8 input stages against the same functions on
+the CPU, on the card.
 
 Every test here is marked ``cuda`` and skips without a CUDA device. This
 file imports no JAX, so it also runs where only the port is installed,
@@ -157,6 +158,48 @@ def test_cuda_corner_kernel_matches_plain(cuda_device, case):
     for bad in (x.double(), x[None], x.t()):
         with pytest.raises(ValueError):
             kernels.corner_response_nms(bad)
+
+
+K2_BLOCK_CASES = {
+    # the video path's block: 32 frames at 960x540
+    "block_32x540x960": dict(F=32, shape=(540, 960)),
+    "ragged_3x541x957": dict(F=3, shape=(541, 957)),  # not multiples of 64x32
+    "radius_5": dict(F=4, shape=(540, 960), radius=5),  # the generic instantiation
+    "one_frame": dict(F=1, shape=(540, 960)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(K2_BLOCK_CASES))
+def test_cuda_corner_block_matches_plain(cuda_device, case):
+    """K2's block mode (response only, one launch per block) against its
+    plain version on the card, float32, TF32 off for cuDNN: within 2e-5 of
+    max|resp|. A block of one frame gives the 2-D kernel's response bit for
+    bit (the same FMAs in the same order); image.corner_response takes the
+    block mode for (H, W) and (F, H, W) alike."""
+    torch.backends.cudnn.allow_tf32 = False
+    spec = K2_BLOCK_CASES[case]
+    radius = spec.get("radius", 6)
+    frames = np.stack([_board_frame(spec["shape"], seed=s) for s in range(spec["F"])])
+    x = torch.as_tensor(frames, device=cuda_device)
+    before = kernels.corner_response_block.launches
+    resp = kernels.corner_response_block(x, radius)
+    assert kernels.corner_response_block.launches == before + 1
+    resp_p = kernels.corner_response_block_plain(x, radius)
+    torch.cuda.synchronize()
+    assert resp.shape == x.shape
+    scale = resp_p.abs().max().item()
+    assert (resp - resp_p).abs().max().item() <= 2e-5 * scale
+    if case == "one_frame":
+        nms_before = kernels.corner_response_nms.launches
+        assert torch.equal(resp[0], kernels.corner_response_nms(x[0], radius)[0])
+        assert torch.equal(image.corner_response(x[0], radius), resp[0])
+        assert kernels.corner_response_nms.launches == nms_before + 1
+    assert torch.equal(image.corner_response(x, radius), resp)
+    assert kernels.corner_response_block.launches == before + 2 + (case == "one_frame")
+    for bad in (x.double(), x[0], x.transpose(1, 2)):
+        with pytest.raises(ValueError):
+            kernels.corner_response_block(bad)
 
 
 @pytest.mark.cuda

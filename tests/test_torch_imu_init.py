@@ -12,6 +12,7 @@ bias within 1e-6.
 
 import json
 import os
+import sys
 import warnings
 
 import numpy as np
@@ -323,7 +324,13 @@ def test_misc_tools_sew_and_biases_match_jax(recordings, tmp_path, name):
             with open(out) as f:
                 outs.append(json.load(f))
         assert outs[0] == outs[1], tool
-    for tool in ("static_imu_main", "allan_main", "board_main", "extract_frames_main",
-                 "debug_calib_main", "result_stats_main"):
+    for tool in ("static_imu_main", "allan_main", "debug_calib_main", "result_stats_main"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             getattr(t_misc, tool)([])
+    # extract-frames decodes video through cv2 and says so without it
+    # (board_main: tests/test_torch_charuco.py)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setitem(sys.modules, "cv2", None)
+        with pytest.raises(ImportError, match="cv2"):
+            t_misc.extract_frames_main(["--path_to_videofile", str(tmp_path / "v.MP4"),
+                                        "--path_to_image_output", str(tmp_path / "frames")])

@@ -176,11 +176,18 @@ def test_optimize_stages_checkpoint_resume(tiny, tmp_path):
 
 
 def test_solve_fn_is_dense_only(tiny):
+    """Below BANDED_MIN_DIM "auto" is the dense solve; "banded", or "auto"
+    from ``banded_min_dim``, looks for a slab decomposition; the tiny
+    problem (2 s) has none, so "auto" falls back to the dense solve and
+    "banded" raises, as in the JAX package (tests/test_torch_banded.py
+    holds the banded solve itself)."""
+    from openimucameracalibrator_torch.solver import banded as t_banded
+
     _, _, tp, _ = tiny
     layout = tse.build_layout(tp)
     assert tse.make_solve_fn(tp, layout, "auto") is None
     assert tse.make_solve_fn(tp, layout, "dense") is None
-    with pytest.raises(NotImplementedError, match="banded"):
+    assert t_banded.from_problem(layout, tp, tse.ORDER) is None
+    with pytest.raises(ValueError, match="slab decomposition"):
         tse.make_solve_fn(tp, layout, "banded")
-    with pytest.raises(NotImplementedError):
-        tse.make_solve_fn(tp, layout, "auto", banded_min_dim=10)
+    assert tse.make_solve_fn(tp, layout, "auto", banded_min_dim=10) is None
