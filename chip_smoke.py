@@ -8,7 +8,8 @@ Phases (every failure exits non-zero; nothing is caught and carried on):
 1. device    — the card's name, and its name and power limit per nvidia-smi.
 2. build     — build both CUDA kernels at once, one nvcc each: the fused
                densify + Gram (csrc/gram.cu, K1) and the corner response +
-               NMS with its block mode (csrc/corner_nms.cu, K2).
+               NMS with its block mode (csrc/corner_nms.cu, K2); beside
+               them the host GPMF reader (csrc/gpmf_reader.cc, g++).
 3. scene     — the DS3-scale synthetic recording (60 s, 60 fps, 200 Hz IMU,
                960x540 division-undistortion camera, rolling shutter,
                charuco 10x8) rendered on the card, and its stage-8 input
@@ -60,6 +61,26 @@ Phases (every failure exits non-zero; nothing is caught and carried on):
                the same inputs, timed, and on the DS3 scene rendered with a
                global shutter, where they are held to the JAX tests' bars
                (both stages model a global shutter).
+10. gopro    — the user's path from a GoPro-style MP4: recorded.make_recording
+               at bench.py's DS3 scale (60 s at 60 fps, 960x540
+               division-undistortion camera, rolling shutter, 200 Hz IMU,
+               10x8 charuco, seed 5) renders on the card and writes cam.MP4
+               and imu_cam.MP4 (MJPEG + GPMF track); a spy keeps the
+               rendered frames. extract_board (charuco, K2 block mode, 32
+               frames per block) detects them on the card, stamped with the
+               times that decoding the MP4 gives (checked against a cv2
+               decode where cv2 is installed), into a workspace; then the
+               run_calibration CLI with --telemetry_format gopro reads the
+               telemetry from the GPMF track (the g++-built reader) and runs
+               stages 1-9 on the card. Held to tests/test_recorded_e2e.py's
+               bars and the stage-8 line-delay bar; K2 block launches counted
+               during detection, K1 launches during the CLI (each family's
+               first launch held against its plain version).
+11. static IMU — the static-imu-calibration tool on the card on the
+               multi-pose recording of tests/test_static_imu.py (the port's
+               synthetic.make_multipose_imu), read back with
+               io.load_imu_intrinsics and held to that test's bars; the gyro
+               LM's time, and its CUDA launches counted by torch.profiler.
 
 The line before the last is a JSON object listing every ported kernel; the
 last line is ``{"ok": true, "device": {...}}``. Needs one CUDA device and
@@ -104,6 +125,17 @@ CHARUCO = dict(square_length=0.04, marker_length=0.03)
 # the port used to raise), its damped solve at this lambda.
 BANDED_DURATION = 300.0
 BANDED_LAM = 1e-4
+
+# GoPro path: bench.py's _e2e_dataset (bench.py:682-688), and the JAX
+# package's TPU v5e accuracy record of it (bench_cache/e2e_tpu.json; corners
+# from decoded JPEG frames there, from the unencoded frames here).
+GOPRO = dict(model_name="division_undistortion", image_size=(960, 540), duration=60.0,
+             cam_fps=60.0, intrinsics_frames=30, imu_rate=IMU_RATE, time_offset=TIME_OFFSET,
+             line_delay=LINE_DELAY, squares_x=10, squares_y=8, square_length=0.04,
+             marker_length=0.03, seed=5)
+GOPRO_TPU = dict(intrinsics_reproj_px=0.2993, final_reproj_px=0.4731, time_offset_err_ms=0.29,
+                 line_delay_err_us=0.444)
+CAM_VIDEO_FPS = 2.0  # make_recording's intrinsics video rate
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and fp32 CUDA-core FLOP/s.
 HBM_BYTES_S = 3.35e12
@@ -350,10 +382,11 @@ def kernel_phase(gram, shapes, captured):
     return rows
 
 
-def build_kernels(gram, kernels):
-    """Build both kernels at once (one nvcc each) and report each build."""
-    with concurrent.futures.ThreadPoolExecutor(2) as ex:
-        libs = list(ex.map(lambda b: b(), (gram.build, kernels.build)))
+def build_kernels(gram, kernels, gpmf):
+    """Build both kernels and the GPMF reader at once (one nvcc each, one
+    g++) and report each build."""
+    with concurrent.futures.ThreadPoolExecutor(3) as ex:
+        libs = list(ex.map(lambda b: b(), (gram.build, kernels.build, gpmf.library)))
     for lib in libs:
         log(f"[build] {lib.path} in {lib.build_seconds:.2f} s")
         for line in lib.build_log.splitlines():
@@ -983,6 +1016,272 @@ def charuco_phase(torch, mods, tmp):
     return row, corners
 
 
+def _timed(module, name, seconds):
+    """Wrap ``module.name`` to add its wall seconds to ``seconds[name]``;
+    returns the original."""
+    real = getattr(module, name)
+
+    def wrapper(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return real(*a, **kw)
+        finally:
+            seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
+
+    setattr(module, name, wrapper)
+    return real
+
+
+def decoded_times(path, n):
+    """Frame times (s) of an MP4 as cv2 decodes them, or None without cv2."""
+    try:
+        import cv2
+    except ImportError:
+        return None
+    cap = cv2.VideoCapture(path)
+    out = []
+    while len(out) < n + 1:
+        ok, _ = cap.read()
+        if not ok:
+            break
+        out.append(cap.get(cv2.CAP_PROP_POS_MSEC) * 1e-3)
+    cap.release()
+    return np.asarray(out)
+
+
+def gopro_phase(torch, mods, tmp):
+    """The GoPro MP4 path on the card (phase 10): render and mux the DS3
+    recording, detect its frames on the card into a workspace, run the
+    run_calibration CLI on the MP4's GPMF telemetry. Checks every bar;
+    returns K2 block launches during detection, K1 launches by family
+    during the CLI, and K1's check per family."""
+    recorded, mp4_writer, board_extractor, gpmf, run_cal, io, gram, kernels, lie = mods
+    d, ws = os.path.join(tmp, "gopro"), os.path.join(tmp, "gopro_ws")
+    os.makedirs(ws)
+    kept, muxed, secs = [], [], {}
+    real_render = recorded.render_frames
+
+    def render_spy(*a, **kw):
+        t0 = time.perf_counter()
+        frames = real_render(*a, **kw)
+        secs["render"] = secs.get("render", 0.0) + time.perf_counter() - t0
+        kept.append((np.asarray(a[1], np.float64), frames))
+        return frames
+
+    real_payloads = mp4_writer.make_imu_payloads
+
+    def payload_spy(times, accel, gyro, **kw):
+        muxed.append((np.array(times), np.array(accel), np.array(gyro)))
+        return real_payloads(times, accel, gyro, **kw)
+
+    recorded.render_frames = render_spy
+    mp4_writer.make_imu_payloads = payload_spy
+    real_jpeg = _timed(mp4_writer, "encode_jpeg", secs)
+    real_write = _timed(mp4_writer, "write_mp4", secs)
+    try:
+        t0 = time.perf_counter()
+        rec = recorded.make_recording(d, **GOPRO, device="cuda")
+        make_s = time.perf_counter() - t0
+    finally:
+        recorded.render_frames = real_render
+        mp4_writer.make_imu_payloads = real_payloads
+        mp4_writer.encode_jpeg, mp4_writer.write_mp4 = real_jpeg, real_write
+    (_, frames_cam), (stamps_ic, frames_ic) = kept
+    n_cam, n_ic = len(frames_cam), len(frames_ic)
+    sizes = {k: os.path.getsize(v) for k, v in (("cam", rec.cam_video),
+                                                 ("imu_cam", rec.imu_cam_video))}
+    log(f"[gopro] make_recording {make_s:.2f} s: {n_cam} + {n_ic} frames 960x540 rendered in "
+        f"{secs['render']:.2f} s ({1e3 * secs['render'] / (n_cam + n_ic):.2f} ms per frame), "
+        f"JPEG encoding {secs['encode_jpeg']:.2f} s "
+        f"({1e3 * secs['encode_jpeg'] / (n_cam + n_ic):.2f} ms per frame), muxing "
+        f"{secs['write_mp4']:.2f} s; cam.MP4 {sizes['cam'] / 1e6:.1f} MB, imu_cam.MP4 "
+        f"{sizes['imu_cam'] / 1e6:.1f} MB")
+
+    # The times decoding gives: k / fps (a cv2 decode of a make_recording
+    # MP4 returns CAP_PROP_POS_MSEC = 1000 k / fps).
+    t_cam = np.arange(n_cam) / CAM_VIDEO_FPS
+    t_ic = np.arange(n_ic) / GOPRO["cam_fps"]
+    dec = decoded_times(rec.imu_cam_video, n_ic)
+    if dec is None:
+        log("[gopro] cv2 is not installed: the stamps k / fps are not checked against a decode")
+        decode_ok = True
+    else:
+        decode_ok = len(dec) == n_ic and float(np.max(np.abs(dec - t_ic))) < 1e-9
+        log(f"[gopro] cv2 decodes {len(dec)} frames of imu_cam.MP4, times within "
+            f"{float(np.max(np.abs(dec[:n_ic] - t_ic[:len(dec)]))):.2e} s of k / fps")
+
+    opts = board_extractor.BoardExtractorOptions(
+        board_type="charuco", squares_x=GOPRO["squares_x"], squares_y=GOPRO["squares_y"],
+        square_length=GOPRO["square_length"], marker_length=GOPRO["marker_length"],
+        batch_frames=32)
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    ds_cam = board_extractor.extract_board(zip(t_cam, frames_cam), opts, device="cuda")
+    ds_ic = board_extractor.extract_board(zip(t_ic, frames_ic), opts, device="cuda")
+    torch.cuda.synchronize()
+    det_s = time.perf_counter() - t0
+    block_launches = kernels.corner_response_block.launches
+    nms_launches = kernels.corner_response_nms.launches
+    del kept, frames_cam, frames_ic
+    io.save_corners(ds_cam, os.path.join(ws, "cam_corners.uson"))
+    io.save_corners(ds_ic, os.path.join(ws, "imu_cam_corners.uson"))
+    per_frame = ds_ic.valid.sum(1)
+    log(f"[gopro] extract_board {det_s:.2f} s for {n_cam + n_ic} frames "
+        f"({1e3 * det_s / (n_cam + n_ic):.2f} ms per frame); imu-cam corners per frame: mean "
+        f"{per_frame.mean():.2f}, >= 20 in {int((per_frame >= 20).sum())} of {n_ic} frames; "
+        f"intrinsics video {int(ds_cam.valid.sum())} corners; corner_response_block launches "
+        f"{block_launches}, corner_response_nms {nms_launches}")
+
+    t0 = time.perf_counter()
+    tel = gpmf.read_gopro_mp4(rec.imu_cam_video)
+    read_s = time.perf_counter() - t0
+    times, accel, gyro = muxed[0]
+    gpmf_ok = (np.array_equal(tel.imu.accel, accel.astype(np.float32))
+               and np.array_equal(tel.imu.gyro, gyro.astype(np.float32))
+               and float(np.max(np.abs(tel.imu.times - times))) < 1e-9
+               and len(tel.img_times) == n_ic
+               and float(np.max(np.abs(tel.img_times - t_ic))) < 1e-9)
+    log(f"[gopro] gpmf.read_gopro_mp4 {1e3 * read_s:.1f} ms: {len(tel.imu.times)} IMU samples, "
+        f"{len(tel.img_times)} frame times, CORI {tel.cam_quats.shape}; equal to what was "
+        f"muxed (float32 samples): {gpmf_ok}")
+
+    gram_checked = {}
+    real_gram = gram.fused_gram
+    gram.reset_counts()
+    kernels.reset_counts()
+    gram.fused_gram = checking_gram_spy(gram, gram_checked)
+    try:
+        t0 = time.perf_counter()
+        summary = run_cal.main([
+            "--path_calib_dataset", d, "--telemetry_json", rec.imu_cam_video,
+            "--telemetry_format", "gopro", "--num_squares_x", "10", "--num_squares_y", "8",
+            "--checker_size_m", "0.04", "--marker_size_m", "0.03", "--workspace", ws,
+            "--device", "cuda"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        gram.fused_gram = real_gram
+    counts = dict(gram.fused_gram.launches_by_tag)
+    launches = gram.fused_gram.launches
+    k2_cli = kernels.corner_response_block.launches + kernels.corner_response_nms.launches
+    with open(os.path.join(ws, "imu_cam_result.json")) as f:
+        n_lin = sum(s["linearizations"] for s in json.load(f)["lm_stages"])
+    log(f"[gopro] run_calibration CLI wall {wall:.2f} s; stage_timings_s "
+        f"{json.dumps(summary['stage_timings_s'])}; fused_gram launches {launches} ({counts}) "
+        f"for {n_lin} linearizations; K2 launches during the CLI {k2_cli} (corners from the "
+        f"workspace)")
+    got = np.asarray(summary["intrinsics_params"])
+    gt = rec.cam_params
+    q = torch.tensor(summary["q_i_c"], dtype=torch.float64)
+    rot_err = float(torch.linalg.vector_norm(lie.quat_boxminus(
+        q, torch.as_tensor(rec.q_i_c, dtype=torch.float64))))
+    dt_err = abs(summary["time_offset_s"] - rec.time_offset)
+    ld = summary["line_delay_us"] * 1e-6
+    t_err = np.abs(np.asarray(summary["t_i_c"]) - rec.t_i_c)
+    g = np.asarray(summary["gravity"])
+    measured = dict(intrinsics_reproj_px=summary["intrinsics_reproj_error_px"],
+                    final_reproj_px=summary["final_reproj_error_px"],
+                    time_offset_err_ms=dt_err * 1e3, line_delay_err_us=abs(ld - rec.line_delay)
+                    * 1e6)
+    log(f"[gopro] intrinsics {got.tolist()} (truth {gt.tolist()}); rotation error "
+        f"{np.rad2deg(rot_err):.4f} deg, t_i_c error {t_err.tolist()} m, line delay "
+        f"{ld * 1e6:.3f} us (truth {rec.line_delay * 1e6:.3f}), gravity {g.tolist()}")
+    log("[gopro] accuracy, this run (unencoded frames) vs the JAX package's TPU v5e record "
+        "(bench_cache/e2e_tpu.json, decoded JPEG; not a bar): " + ", ".join(
+            f"{k} {measured[k]:.4f} vs {v}" for k, v in GOPRO_TPU.items()))
+    numbers = [*measured.values(), *summary["t_i_c"], *summary["gravity"], *summary["q_i_c"],
+               *got.tolist()]
+    checks = {
+        "frame stamps equal a cv2 decode of imu_cam.MP4 (where cv2 is installed)": decode_ok,
+        "GPMF telemetry equals what was muxed": gpmf_ok,
+        "intrinsics reprojection error < 0.31 px": measured["intrinsics_reproj_px"] < 0.31,
+        "focal within 1%": abs(got[0] - gt[0]) / gt[0] < 0.01,
+        "principal point within 2 px": abs(got[1] - gt[1]) < 2.0 and abs(got[2] - gt[2]) < 2.0,
+        "|time offset - truth| < 3 ms": dt_err < 3e-3,
+        "t_i_c within 5 mm per axis": bool(np.all(t_err < 5e-3)),
+        "rotation within 0.5 deg": rot_err < np.deg2rad(0.5),
+        "final reprojection error < 2.0 px": measured["final_reproj_px"] < 2.0,
+        "|gravity| within 0.05 of 9.81 and g_z > 9.7":
+            abs(np.linalg.norm(g) - 9.81) < 0.05 and g[2] > 9.7,
+        "line delay within 30% of truth": abs(ld - rec.line_delay) < 0.3 * rec.line_delay,
+        "finite result": all(math.isfinite(v) for v in numbers),
+        "one K2 block launch per block of 32 frames": block_launches == math.ceil(n_cam / 32)
+        + math.ceil(n_ic / 32) and nms_launches == 0,
+        "3 kernel launches per linearization": n_lin > 0 and launches == 3 * n_lin and all(
+            counts.get(f, 0) == n_lin for f in ("obs", "accel", "gyro")),
+        "fused_gram held against its plain version at each family's shapes":
+            sorted(gram_checked) == ["accel", "gyro", "obs"],
+    }
+    for k, ok in checks.items():
+        log(f"[gopro] check {k}: {'ok' if ok else 'FAILED'}")
+    if not all(checks.values()):
+        raise SystemExit("gopro path checks failed")
+    shutil.rmtree(d, ignore_errors=True)
+    return block_launches, counts, gram_checked
+
+
+def static_imu_phase(torch, mods, tmp):
+    """The static-imu-calibration tool on the card (phase 11), its json read
+    back and held to tests/test_static_imu.py's bars; the gyro LM timed,
+    and its CUDA launches counted."""
+    misc_tools, static_imu_calibrator, telemetry, io, synthetic = mods
+    tr = synthetic.MULTIPOSE_TRUTH
+    imu = synthetic.make_multipose_imu(np.random.default_rng(42))
+    tel_path, out = os.path.join(tmp, "multipose.json"), os.path.join(tmp, "imu_intr.json")
+    telemetry.write_generic_json(telemetry.CameraTelemetry(imu=imu), tel_path)
+    t0 = time.perf_counter()
+    info = misc_tools.static_imu_main(["--telemetry_json", tel_path, "--output_path", out,
+                                       "--initial_static_duration_s", "5.0",
+                                       "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    acc, gyr = io.load_imu_intrinsics(out)
+
+    # One linearization and one cost evaluation of the gyro fit on the same
+    # intervals, timed and under the profiler: their CUDA kernel launches.
+    from torch.profiler import ProfilerActivity, profile
+    lin, cost, _, params0, _, _ = static_imu_calibrator.gyro_problem(
+        telemetry.read_generic_json(tel_path).imu, info["intervals"], acc, 9.81, "cuda")
+    lin_ms, cost_ms = cuda_ms(lambda: lin(params0), 0, 1), cuda_ms(lambda: cost(params0), 0, 1)
+    launches = {}
+    for name, fn in (("linearization", lin), ("cost evaluation", cost)):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn(params0)
+            torch.cuda.synchronize()
+        # The raw device activities (building the profiler's event tree
+        # for ~10^5 of them would take minutes), copies and fills left out.
+        launches[name] = sum(1 for e in prof.profiler.kineto_results.events()
+                             if e.device_type() == torch.autograd.DeviceType.CUDA
+                             and not e.name().startswith(("Memcpy", "Memset")))
+    log(f"[static imu] static-imu-calibration tool {wall:.2f} s on {len(imu.times)} samples: "
+        f"{info['num_intervals']} static intervals (threshold x{info['threshold_mult']}); gyro "
+        f"LM {info['gyro_seconds']:.2f} s, {info['gyro_iterations']} iterations, "
+        f"{info['gyro_linearizations']} linearizations; one linearization {lin_ms:.1f} ms with "
+        f"{launches['linearization']} CUDA kernel launches, one cost evaluation {cost_ms:.1f} ms "
+        f"with {launches['cost evaluation']} (torch.profiler)")
+    log(f"[static imu] accel scale {acc.scale.tolist()} bias {acc.bias.tolist()}; gyro scale "
+        f"{gyr.scale.tolist()} bias {gyr.bias.tolist()}")
+    cal = acc.unbias_normalize(imu.accel[:400])
+    checks = {
+        ">= 12 static intervals": info["num_intervals"] >= 12,
+        "accel scale within 5e-3": np.allclose(acc.scale, tr["accel_scale"], rtol=0, atol=5e-3),
+        "accel bias within 2e-2": np.allclose(acc.bias, tr["accel_bias"], rtol=0, atol=2e-2),
+        "accel misalignment within 5e-3":
+            np.allclose(acc.misalignment, tr["accel_misalignment"], rtol=0, atol=5e-3),
+        "gyro scale within 1e-2": np.allclose(gyr.scale, tr["gyro_scale"], rtol=0, atol=1e-2),
+        "gyro bias within 2e-3": np.allclose(gyr.bias, tr["gyro_bias"], rtol=0, atol=2e-3),
+        "gyro misalignment within 1e-2":
+            np.allclose(gyr.misalignment, tr["gyro_misalignment"], rtol=0, atol=1e-2),
+        "calibrated static accel norm within 0.02 of g":
+            abs(np.linalg.norm(cal, axis=1).mean() - 9.81) < 0.02,
+        "the profiler saw the gyro fit's kernels": min(launches.values()) > 0,
+    }
+    for k, ok in checks.items():
+        log(f"[static imu] check {k}: {'ok' if ok else 'FAILED'}")
+    if not all(checks.values()):
+        raise SystemExit("static IMU checks failed")
+
+
 def ds3_problem(duration, device):
     """The DS3 recording cut to ``duration`` seconds, as a spline problem on
     ``device`` with its truth-seeded initial point: (problem, params, scene).
@@ -1082,15 +1381,17 @@ def main():
     sys.path.insert(0, here)
     from openimucameracalibrator_torch.apps import calibrate_camera as cal_cli
     from openimucameracalibrator_torch.apps import continuous_time_calibration as cli
+    from openimucameracalibrator_torch.apps import misc_tools
     from openimucameracalibrator_torch.apps import run_calibration as run_cal
-    from openimucameracalibrator_torch.core import (board_extractor, imu_cam_rotation,
-                                                    imu_camera_calibrator, pose_estimator)
+    from openimucameracalibrator_torch.core import (board_extractor, gpmf, imu_cam_rotation,
+                                                    imu_camera_calibrator, pose_estimator,
+                                                    static_imu_calibrator, telemetry)
     from openimucameracalibrator_torch.core import spline_estimator as se
     from openimucameracalibrator_torch.detect import checkerboard, kernels, render, video
     from openimucameracalibrator_torch.models import cameras
     from openimucameracalibrator_torch.ops import lie
     from openimucameracalibrator_torch.solver import banded, gram, lm
-    from openimucameracalibrator_torch.utils import io, precision, recorded, synthetic
+    from openimucameracalibrator_torch.utils import io, mp4_writer, precision, recorded, synthetic
 
     t_start = time.perf_counter()
     device = precision.resolve_device("cuda")  # also turns TF32 off
@@ -1099,7 +1400,7 @@ def main():
     log(f"[device] {name}; nvidia-smi: {smi}; torch {torch.__version__} "
         f"cuda {torch.version.cuda}; tf32 matmul {torch.backends.cuda.matmul.allow_tf32}")
 
-    build_kernels(gram, kernels)
+    build_kernels(gram, kernels, gpmf)
 
     tmp = tempfile.mkdtemp(prefix="oicc_chip_smoke_")
     st = stage8_setup(torch, device, tmp)
@@ -1182,6 +1483,15 @@ def main():
         seen = pipeline_checked[row["tag"]]
         row["max_abs_err_pipeline"] = seen["max_abs_err"]
         row["shape_pipeline"] = {k: seen[k] for k in ("K", "R", "F", "L")}
+
+    gopro_blocks, gopro_counts, gopro_checked = gopro_phase(
+        torch, (recorded, mp4_writer, board_extractor, gpmf, run_cal, io, gram, kernels, lie), tmp)
+    k2_row["launches_gopro"], block_row["launches_gopro"] = 0, gopro_blocks
+    for row in rows:
+        row["launches_gopro"] = gopro_counts.get(row["tag"], 0)
+        row["max_abs_err_gopro"] = gopro_checked[row["tag"]]["max_abs_err"]
+
+    static_imu_phase(torch, (misc_tools, static_imu_calibrator, telemetry, io, synthetic), tmp)
 
     shutil.rmtree(tmp, ignore_errors=True)
     for row in rows:

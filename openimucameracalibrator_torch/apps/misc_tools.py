@@ -1,18 +1,29 @@
 """CLI: the small pipeline tools.
 
-Port of ``apps/misc_tools.py`` of the JAX package. Ported:
+Port of ``apps/misc_tools.py`` of the JAX package:
 
 * ``sew_main`` — spline error weighting (reference
   python/get_sew_for_dataset.py:38-56)
 * ``biases_main`` — static bias estimate (python/get_imu_biases.py:39-62)
+* ``static_imu_main`` — multi-pose IMU intrinsics
+  (applications/static_imu_calibration.cc:38-88); writes the json that
+  ``utils/io.load_imu_intrinsics`` reads (``run_calibration
+  --imu_intrinsics_json``)
+* ``allan_main`` — IMU noise characterization
+  (applications/fit_allan_variance.cc:32-45)
 * ``board_main`` — printable charuco board PNG (create_charuco_board.cc,
   the native renderer; PIL writes the PNG)
 * ``extract_frames_main`` — video frames to a PNG folder (needs cv2 to
   decode, and says so without it)
+* ``debug_calib_main`` — visual vs gyro angular-velocity plot
+  (python/debug_calib.py)
+* ``result_stats_main`` — spline-vs-IMU plots from a result json
+  (python/print_result_stats.py:24-95)
 
-All run on the host (numpy/scipy), as in the JAX package. The other
-tools raise ``NotImplementedError`` naming the ROADMAP.md item that ports
-them.
+The two fits (static IMU, Allan) run their LM solves on ``--device``
+(default ``cuda``; without a CUDA device they raise unless ``--device
+cpu`` is given); the rest runs on the host (numpy/scipy), as in the JAX
+package. The plots need matplotlib, and say so without it.
 """
 
 from __future__ import annotations
@@ -115,15 +126,119 @@ def extract_frames_main(argv=None):
     print(f"{n} frames -> {args.path_to_image_output}")
 
 
-def _not_ported(tool: str, item: int, needs: str):
-    def main(argv=None):
-        raise NotImplementedError(f"misc_tools {tool} is not ported yet: it needs {needs} "
-                                  f"(ROADMAP.md queue 1, item {item})")
-    return main
+def static_imu_main(argv=None):
+    p = argparse.ArgumentParser()
+    p.add_argument("--telemetry_json", required=True)
+    p.add_argument("--output_path", required=True)
+    p.add_argument("--gravity_const", type=float, default=9.81)
+    p.add_argument("--initial_static_duration_s", type=float, default=30.0)
+    p.add_argument("--device", default="cuda",
+                   help="torch device to run on (default cuda; 'cpu' runs in float64)")
+    args = p.parse_args(argv)
+
+    from openimucameracalibrator_torch.core import static_imu_calibrator, telemetry
+
+    tel = telemetry.read_generic_json(args.telemetry_json)
+    acc, gyr, info = static_imu_calibrator.calibrate(
+        tel.imu, static_imu_calibrator.StaticImuCalibratorOptions(
+            gravity=args.gravity_const,
+            init_static_duration_s=args.initial_static_duration_s), device=args.device)
+    out = {
+        "accelerometer": {"misalignment": acc.misalignment.tolist(),
+                          "scale": acc.scale.tolist(), "bias": acc.bias.tolist()},
+        "gyroscope": {"misalignment": gyr.misalignment.tolist(),
+                      "scale": gyr.scale.tolist(), "bias": gyr.bias.tolist()},
+        "info": {"num_intervals": info["num_intervals"],
+                 "threshold_mult": info["threshold_mult"]},
+    }
+    with open(args.output_path, "w") as f:
+        json.dump(out, f, indent=1)
+    print(f"IMU intrinsics ({info['num_intervals']} poses) -> {args.output_path}")
+    return info
 
 
-static_imu_main = _not_ported("static-imu-calibration", 12,
-                              "core/static_imu_calibrator.py")
-allan_main = _not_ported("fit-allan-variance", 12, "ops/allan.py")
-debug_calib_main = _not_ported("debug-calib", 11, "the pipeline's debug plots")
-result_stats_main = _not_ported("result-stats", 12, "utils/diagnostics.py")
+def allan_main(argv=None):
+    p = argparse.ArgumentParser()
+    p.add_argument("--telemetry_json", required=True)
+    p.add_argument("--output_path", default="")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to run on (default cuda; 'cpu' runs in float64)")
+    args = p.parse_args(argv)
+
+    from openimucameracalibrator_torch.core import telemetry
+    from openimucameracalibrator_torch.ops import allan
+
+    tel = telemetry.read_generic_json(args.telemetry_json)
+    rate = tel.imu.rate_hz
+    res_g = allan.analyze(tel.imu.gyro, rate, device=args.device)
+    res_a = allan.analyze(tel.imu.accel, rate, device=args.device)
+    out = {
+        "gyro": {"white_noise_density": res_g.white_noise_density.tolist(),
+                 "bias_instability": res_g.bias_instability.tolist(),
+                 "random_walk": res_g.random_walk.tolist()},
+        "accel": {"white_noise_density": res_a.white_noise_density.tolist(),
+                  "bias_instability": res_a.bias_instability.tolist(),
+                  "random_walk": res_a.random_walk.tolist()},
+    }
+    print(json.dumps(out, indent=1))
+    if args.output_path:
+        with open(args.output_path, "w") as f:
+            json.dump(out, f, indent=1)
+
+
+def debug_calib_main(argv=None):
+    """Plot visual vs transformed-gyro angular velocities from the rotation
+    initializer's debug dump (reference python/debug_calib.py, generalized:
+    reads the result json instead of hard-coded txt paths)."""
+    p = argparse.ArgumentParser()
+    p.add_argument("--rotation_init_json", required=True,
+                   help="output of estimate-imu-to-camera-rotation")
+    p.add_argument("--output_png", default="")
+    args = p.parse_args(argv)
+
+    import numpy as np
+
+    from openimucameracalibrator_torch.utils import diagnostics
+
+    with open(args.rotation_init_json) as f:
+        data = json.load(f)
+    vis = np.asarray(data.get("debug_visual_ang_vel", []))
+    imu = np.asarray(data.get("debug_imu_ang_vel_transformed", []))
+    if vis.size == 0 or imu.size == 0:
+        print("no debug angular-velocity dump in json (rerun with --debug_dump)")
+        return
+    plt = diagnostics.pyplot()
+    fig, axes = plt.subplots(3, 1, figsize=(10, 8), sharex=True)
+    for c, ax in enumerate(axes):
+        ax.plot(vis[:, c], "g", label="visual")
+        ax.plot(imu[:, c], "b--", label="gyro (R applied)")
+        ax.set_ylabel(f"w[{c}] rad/s")
+    axes[0].legend()
+    out = args.output_png or args.rotation_init_json + ".png"
+    fig.savefig(out, dpi=120)
+    plt.close(fig)
+    print(f"plot -> {out}")
+
+
+def result_stats_main(argv=None):
+    """Replot spline-vs-IMU + bias evolution from a RESULT JSON alone
+    (reference python/print_result_stats.py:24-95 -- works on result files
+    written by either this framework or the reference binary, both of
+    which carry the per-sample 'trajectory' block)."""
+    p = argparse.ArgumentParser()
+    p.add_argument("--path_results", required=True,
+                   help="result json from continuous-time-calibration")
+    p.add_argument("--output_png", default="")
+    args = p.parse_args(argv)
+
+    from openimucameracalibrator_torch.utils import diagnostics
+
+    out = args.output_png or args.path_results + ".png"
+    diagnostics.plot_result_stats(args.path_results, out)
+    with open(args.path_results) as f:
+        obj = json.load(f)
+    for key in ("final_reproj_error", "time_offset_imu_to_cam_s",
+                "calib_line_delay_us", "r3_dt", "so3_dt"):
+        if key in obj:
+            print(f"{key}: {obj[key]}")
+    print(f"plot -> {out}")

@@ -21,7 +21,10 @@ Steps (run_gopro_calibration.py numbering):
 
 Camera-clock anchoring: when the telemetry carries per-frame timestamps,
 the imu-cam corner dataset is re-stamped with them so frame times and IMU
-times share one clock before the offset search.
+times share one clock before the offset search. For a GoPro MP4
+(``--telemetry_format gopro``, read by the native GPMF reader of
+``core/gpmf.py``) these are the video track's frame times, or the CORI
+stream's when it has one sample per frame.
 
 With ``--workspace``, corner files found there are used instead of
 detecting again (``--recompute_corners`` forces detection), as the
@@ -33,9 +36,8 @@ and ``imu_cam_corners.uson`` (``utils/io.save_corners`` of what
 ``board_extractor.extract_board`` found on in-memory (time, gray) frames)
 runs without it. The OpenCV detection backend needs cv2 too.
 
-Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP.md queue 1 item: GoPro MP4 telemetry (item 11), the multi-process
-flags (item 12).
+Not ported yet, raising ``NotImplementedError`` that names its ROADMAP.md
+queue 1 item: the multi-process flags (item 12).
 
     python -m openimucameracalibrator_torch.apps.run_calibration \\
         --path_calib_dataset data --telemetry_json data/telemetry.json \\
@@ -102,7 +104,7 @@ def _read_telemetry(path, fmt):
     from openimucameracalibrator_torch.core import telemetry
 
     if fmt == "gopro" and path.lower().endswith(".mp4"):
-        return telemetry.read_gopro_mp4(path)  # raises: ROADMAP item 11
+        return telemetry.read_gopro_mp4(path)
     if fmt == "pilotguru":
         d = path if os.path.isdir(path) else os.path.dirname(path)
         return telemetry.read_pilotguru(

@@ -17,8 +17,8 @@ CameraCalibrator, camera_calibrator.cc:131-388):
 
 Parameters are ``{"cam", "q_cw", "t_cw", "pts"}``: the camera model
 vector, per-view camera-from-world quaternions and translations, and the
-board points. ``calibrate_camera_batch`` (many models in one solve) comes
-in a later slice.
+board points. ``calibrate_camera_batch`` runs N (model, dataset) jobs
+through one lane-batched three-stage BA (``lm.lm_optimize_lanes``).
 """
 
 from __future__ import annotations
@@ -32,7 +32,7 @@ import torch
 from openimucameracalibrator_torch.models import cameras
 from openimucameracalibrator_torch.ops import lie, pnp
 from openimucameracalibrator_torch.solver import blocks, lm, robust
-from openimucameracalibrator_torch.utils import precision
+from openimucameracalibrator_torch.utils import convert, precision
 from openimucameracalibrator_torch.utils.types import CameraCalibration, CornerDataset
 
 HUBER_PX = 1.345  # camera_calibrator.cc:140-144
@@ -311,3 +311,235 @@ def calibrate_camera(dataset: CornerDataset, model_name: str,
         "init_seconds": init_seconds,
     }
     return calib, details
+
+
+# ---------------------------------------------------------------------------
+# Multi-model batched calibration (BASELINE configs[1])
+#
+# N (model, dataset) pairs run through ONE lane-batched 3-stage BA: camera
+# parameter vectors are padded to a common width, the projection evaluates
+# every distinct model present and picks each lane's (what the JAX
+# package's vmapped lax.switch computes), and every LM stage runs all
+# lanes at once (lm.lm_optimize_lanes) -- per-lane free masks carry both
+# the model's parameter-group structure and the padding. Model lanes that
+# need multi-start (double sphere) become extra lanes, reduced after
+# stage 1. The reference has no such mode (one CameraCalibrator per run).
+# ---------------------------------------------------------------------------
+
+def _switch_project(model_names: tuple):
+    """project(mid, cam_padded, p_cam): each model of ``model_names`` on
+    its own leading parameters, the one at index ``mid`` selected. Under
+    ``torch.func`` the unselected models' values and tangents are dropped
+    by the selection, as under the JAX package's vmapped switch."""
+    models = [cameras.get_model(n) for n in model_names]
+
+    def project(mid, cam_padded, p_cam):
+        uv, ok = models[0].project(cam_padded[:models[0].num_params], p_cam)
+        for i, m in enumerate(models[1:], 1):
+            uv_i, ok_i = m.project(cam_padded[:m.num_params], p_cam)
+            sel = mid == i
+            uv, ok = torch.where(sel, uv_i, uv), torch.where(sel, ok_i, ok)
+        return uv, ok
+
+    return project
+
+
+def _lane_project(project, prm, mid):
+    p_cam = (lie.quat_rotate(prm["q_cw"][:, None, :], prm["pts"][None])
+             + prm["t_cw"][:, None, :])
+    return project(mid, prm["cam"], p_cam)
+
+
+def _run_ba_stage_multi(params_b, mask_b, view_w_b, obs_b, valid_b, mid_b,
+                        model_names: tuple, max_iters: int):
+    """One LM stage on every lane at once; returns the ``lm.LMResult``
+    (per-lane cost, iterations and status)."""
+    from torch.func import vmap
+
+    npad = params_b["cam"].shape[-1]
+    layout = _build_layout(obs_b.shape[1], npad, params_b["pts"].shape[1])
+    project = _switch_project(model_names)
+
+    def wfn(r):
+        return robust.huber_sqrt_weights(r, HUBER_PX, group_size=2)
+
+    def lane_fns(view_w, obs, valid, mid):
+        def residual(prm):
+            uv, ok = _lane_project(project, prm, mid)
+            w = (valid & ok).to(uv.dtype) * view_w[:, None]
+            return ((uv - obs) * w[..., None]).reshape(-1)
+
+        return lm.make_dense_linearizer(residual, layout, weight_fn=wfn)
+
+    data = (view_w_b, obs_b, valid_b, mid_b)
+    lin_b = vmap(lambda prm, *d: lane_fns(*d)[0](prm))
+    cost_b = vmap(lambda prm, *d: lane_fns(*d)[1](prm))
+    retract_b = vmap(layout.retract)
+    return lm.lm_optimize_lanes(lambda prm: lin_b(prm, *data), lambda prm: cost_b(prm, *data),
+                                retract_b, params_b, mask_b,
+                                lm.LMConfig(max_iters=max_iters, ftol=1e-8))
+
+
+def _per_view_rmse_multi(params_b, obs_b, valid_b, mid_b, model_names: tuple):
+    """(per-view RMSE (L, V), per-observation error (L, V, P), good mask)."""
+    from torch.func import vmap
+
+    project = _switch_project(model_names)
+
+    def one(prm, obs, valid, mid):
+        uv, ok = _lane_project(project, prm, mid)
+        good = valid & ok
+        err2 = torch.sum((uv - obs) ** 2, -1) * good
+        n = torch.clamp(torch.sum(good, -1), min=1)
+        err = torch.linalg.vector_norm(uv - obs, dim=-1) * good
+        return torch.sqrt(torch.sum(err2, -1) / n), err, good
+
+    return vmap(one)(params_b, obs_b, valid_b, mid_b)
+
+
+def calibrate_camera_batch(jobs, options: CameraCalibratorOptions | None = None, device=None):
+    """Calibrate N (model_name, CornerDataset) pairs in one lane-batched
+    solve on ``device`` (default ``"cuda"``).
+
+    Returns a list of (CameraCalibration, details) in input order. All
+    datasets must share the image size class (shapes are padded to common
+    maxima). Host-side init (homography/focal, voxel dedup) runs per
+    dataset; the 3-stage BA schedule runs on all lanes at once.
+    """
+    opts = options or CameraCalibratorOptions()
+    device = precision.resolve_device(device)
+    dt = precision.resolve(opts.dtype, device)
+
+    # --- host-side per-dataset init (same path as calibrate_camera) ---
+    lanes = []
+    for ji, (model_name, dataset) in enumerate(jobs):
+        model = cameras.get_model(model_name)
+        w, h = dataset.image_size
+        f0, q_cw, t_cw, enough, lam0 = initialize_views(
+            dataset, dt, distortion_aware=(model.name != "pinhole"), device=device)
+        rot = lie.quat_to_matrix(torch.as_tensor(q_cw, dtype=torch.float64)).numpy()
+        cam_pos = np.einsum("vij,vj->vi", np.transpose(rot, (0, 2, 1)), -t_cw)
+        picked = _voxel_dedup(cam_pos, enough, opts.grid_size, opts.max_views)
+        grid = opts.grid_size
+        while picked.size < opts.min_num_views and grid > 1e-6 and \
+                picked.size < int(np.sum(enough)):
+            grid *= 0.5
+            picked = _voxel_dedup(cam_pos, enough, grid, opts.max_views)
+        if picked.size < opts.min_num_views:
+            raise ValueError(f"job {ji} ({model_name}): only {picked.size} "
+                             f"usable views (need >= {opts.min_num_views})")
+        cam0 = model.init_params(f0, w / 2.0, h / 2.0, dtype=dt, device="cpu").numpy()
+        if model.name == "division_undistortion":
+            cam0[3] = lam0
+        base = dict(job=ji, model=model, picked=picked, f0=f0,
+                    obs=np.asarray(dataset.points2d[picked], np.float64),
+                    valid=np.asarray(dataset.valid[picked]),
+                    pts=np.asarray(dataset.board_points, np.float64),
+                    q_cw=q_cw[picked], t_cw=t_cw[picked])
+        lanes.append(dict(base, cam=cam0, alt=False))
+        if model.name == "double_sphere":
+            for xi0 in (-0.25, 0.25):
+                cam_alt = cam0.copy()
+                cam_alt[4] = xi0
+                cam_alt[0] = float(cam0[0]) * (1 + xi0)
+                cam_alt[1] = float(cam0[1]) * (1 + xi0)
+                lanes.append(dict(base, cam=cam_alt, alt=True))
+
+    model_names = tuple(dict.fromkeys(ln["model"].name for ln in lanes))
+    npad = max(cameras.get_model(n).num_params for n in model_names)
+    v_max = max(ln["obs"].shape[0] for ln in lanes)
+    p_max = max(ln["pts"].shape[0] for ln in lanes)
+    L = len(lanes)
+
+    obs_b = np.zeros((L, v_max, p_max, 2))
+    valid_b = np.zeros((L, v_max, p_max), bool)
+    params_b = {"cam": np.zeros((L, npad)), "q_cw": np.zeros((L, v_max, 4)),
+                "t_cw": np.zeros((L, v_max, 3)), "pts": np.zeros((L, p_max, 3))}
+    params_b["q_cw"][..., 0] = 1.0  # padded views: identity quats
+    view_w_b = np.zeros((L, v_max))
+    mid_b = np.zeros((L,), np.int64)
+    layout = _build_layout(v_max, npad, p_max)
+    masks = np.zeros((3, L, layout.tangent_dim))
+    for i, ln in enumerate(lanes):
+        m = ln["model"]
+        V, P = ln["obs"].shape[:2]
+        obs_b[i, :V, :P] = ln["obs"]
+        valid_b[i, :V, :P] = ln["valid"]
+        params_b["cam"][i, :m.num_params] = ln["cam"]
+        params_b["q_cw"][i, :V] = ln["q_cw"]
+        params_b["t_cw"][i, :V] = ln["t_cw"]
+        params_b["pts"][i, :P] = ln["pts"]
+        view_w_b[i, :V] = 1.0
+        mid_b[i] = model_names.index(m.name)
+
+        def cam_mask(free_idx):
+            c = np.zeros(npad)
+            c[np.asarray(free_idx, int)] = 1.0
+            return c
+
+        pose_mask = np.zeros((v_max, 3))
+        pose_mask[:V] = 1.0
+        g = m.param_groups
+        masks[0, i] = layout.free_mask(
+            fixed=["pts"], partial_masks={"cam": cam_mask(g["focal"] + g["dist"]),
+                                          "q_cw": pose_mask, "t_cw": pose_mask}).numpy()
+        masks[1, i] = layout.free_mask(
+            fixed=["q_cw", "t_cw", "pts"], partial_masks={"cam": cam_mask(g["pp"])}).numpy()
+        masks[2, i] = layout.free_mask(
+            fixed=["pts"], partial_masks={"cam": cam_mask(range(m.num_params)),
+                                          "q_cw": pose_mask, "t_cw": pose_mask}).numpy()
+
+    def T(x):
+        return torch.as_tensor(x, dtype=dt, device=device)
+
+    prm = convert.ba_params_from_numpy(params_b, device=device, dtype=dt)
+    obs_t, vw = T(obs_b), T(view_w_b)
+    valid_t = torch.as_tensor(valid_b, device=device)
+    mid_t = torch.as_tensor(mid_b, device=device)
+    m1, m2, m3 = (T(m) for m in masks)
+
+    def stage(prm, mask, vw):
+        return _run_ba_stage_multi(prm, mask, vw, obs_t, valid_t, mid_t, model_names,
+                                   opts.max_iters)
+
+    # Stage 1 (+ multi-start reduction).
+    res = stage(prm, m1, vw)
+    costs = res.cost.cpu().numpy()
+    keep = []
+    for ji in range(len(jobs)):
+        idxs = [i for i, ln in enumerate(lanes) if ln["job"] == ji]
+        finite = [i for i in idxs if np.isfinite(costs[i])]
+        keep.append(min(finite or idxs, key=lambda i: costs[i]))
+    sel = torch.as_tensor(keep, device=device)
+    prm = {k: v[sel] for k, v in res.params.items()}
+    vw, obs_t, valid_t, mid_t = vw[sel], obs_t[sel], valid_t[sel], mid_t[sel]
+    m2, m3 = m2[sel], m3[sel]
+
+    rmse, _, _ = _per_view_rmse_multi(prm, obs_t, valid_t, mid_t, model_names)
+    vw = vw * (rmse < opts.stage1_prune_px)
+    prm = stage(prm, m2, vw).params
+    prm = stage(prm, m3, vw).params
+    rmse, _, _ = _per_view_rmse_multi(prm, obs_t, valid_t, mid_t, model_names)
+    vw = vw * (rmse < opts.stage3_prune_px)
+    prm = stage(prm, m3, vw).params
+
+    rmse, err, good = _per_view_rmse_multi(prm, obs_t, valid_t, mid_t, model_names)
+    host = convert.ba_params_to_numpy(prm)
+    err_np, good_np = err.cpu().numpy(), good.cpu().numpy()
+    vw_np, rmse_np = vw.cpu().numpy(), rmse.cpu().numpy().astype(np.float64)
+    out = []
+    for ji, (model_name, dataset) in enumerate(jobs):
+        m = cameras.get_model(model_name)
+        ln = lanes[keep[ji]]
+        V = ln["obs"].shape[0]
+        act = (vw_np[ji, :, None] > 0) & good_np[ji]
+        tot = err_np[ji][act].sum()
+        n = max(int(act.sum()), 1)
+        calib = CameraCalibration(
+            model_name=m.name, params=host["cam"][ji][:m.num_params],
+            image_size=dataset.image_size, mean_reproj_error=float(tot / n), fps=dataset.fps)
+        details = {"picked_views": ln["picked"], "active": vw_np[ji, :V] > 0,
+                   "q_cw": host["q_cw"][ji][:V], "t_cw": host["t_cw"][ji][:V],
+                   "per_view_rmse": rmse_np[ji][:V], "init_focal": ln["f0"]}
+        out.append((calib, details))
+    return out

@@ -286,8 +286,7 @@ def merge_telemetry(telemetries):
 
 
 def read_gopro_mp4(path: str, skip_seconds: float = 0.0) -> CameraTelemetry:
-    """GoPro MP4 -> telemetry via the native GPMF reader: not ported yet."""
-    raise NotImplementedError(
-        "reading GoPro MP4 telemetry needs core/gpmf.py and the native GPMF reader, "
-        "which are not ported yet (ROADMAP.md queue 1, item 11); convert the "
-        "telemetry to gpmf-parser or generic json first")
+    """GoPro MP4 -> telemetry via the native GPMF reader (``core/gpmf.py``)."""
+    from openimucameracalibrator_torch.core import gpmf
+
+    return gpmf.read_gopro_mp4(path, skip_seconds)

@@ -174,6 +174,103 @@ def lm_optimize(
                     status, hist, time.perf_counter() - t_start, it)
 
 
+def _solve_damped_lanes(H, g, lam):
+    """:func:`_solve_damped` for a stack of independent systems: H (L, D, D),
+    g (L, D), lam (L,); a lane whose factorization fails gets NaNs."""
+    d = torch.diagonal(H, dim1=-2, dim2=-1)
+    s = torch.rsqrt(torch.clamp(d, min=1e-12))
+    Hs = H * s[:, :, None] * s[:, None, :]
+    Hd = Hs + lam[:, None, None] * torch.eye(H.shape[-1], dtype=H.dtype, device=H.device)
+    L, info = torch.linalg.cholesky_ex(Hd)
+    b = -(s * g)
+    y = torch.cholesky_solve(b[..., None], L)[..., 0]
+    r = (Hd @ y[..., None])[..., 0] - b
+    y = y - torch.cholesky_solve(r[..., None], L)[..., 0]
+    out = s * y
+    return torch.where(info[:, None] == 0, out, torch.full_like(out, float("nan")))
+
+
+def _select(mask, a: dict, b: dict) -> dict:
+    """Per lane: ``a`` where ``mask`` (L,), else ``b``."""
+    return {k: torch.where(mask.reshape((-1,) + (1,) * (a[k].ndim - 1)), a[k], b[k])
+            for k in a}
+
+
+def lm_optimize_lanes(
+    linearize_fn: Callable,
+    cost_fn: Callable,
+    retract_fn: Callable,
+    params0: dict,
+    free_mask: torch.Tensor,
+    config: LMConfig = LMConfig(),
+) -> LMResult:
+    """The classic loop of :func:`lm_optimize` on L independent problems
+    at once, as ``vmap(lm_optimize)`` runs in the JAX package: each lane
+    keeps its own damping, iteration count and status, and a lane that
+    has stopped keeps its state while the others go on.
+
+    ``linearize_fn(params) -> (H (L, D, D), g (L, D), cost (L,))``,
+    ``cost_fn(params) -> (L,)`` and ``retract_fn(params, delta (L, D))``
+    act on lane-stacked parameter dicts; ``free_mask`` is (L, D). Returns
+    an ``LMResult`` whose cost, iterations, lam and status are per lane
+    ((L,) tensors; ``cost_history`` is (L, history_len)).
+    """
+    cfg = config
+    t_start = time.perf_counter()
+    cost0 = cost_fn(params0)
+    dtype, device = cost0.dtype, cost0.device
+    n_lanes = cost0.shape[0]
+    fmask = free_mask.to(dtype)
+    lam = torch.full((n_lanes,), cfg.lam0, dtype=dtype, device=device)
+    hist = torch.full((n_lanes, cfg.history_len), float("nan"), dtype=dtype, device=device)
+    it = torch.zeros(n_lanes, dtype=torch.int64, device=device)
+    status = torch.full((n_lanes,), STATUS_MAX_ITERS, dtype=torch.int64, device=device)
+    params, cost = params0, cost0
+    eye = torch.eye(fmask.shape[-1], dtype=dtype, device=device)
+    n_lin = 0
+    active = (it < cfg.max_iters) & (status == STATUS_MAX_ITERS)
+    while bool(active.any()):
+        H, g, cost_lin = linearize_fn(params)
+        n_lin += 1
+        H = H * fmask[:, :, None] * fmask[:, None, :] + eye * (1.0 - fmask)[:, None, :]
+        g = g * fmask
+        denom = torch.clamp(cost_lin, min=1e-20)
+        best_params, best_cost, lam_i = params, cost_lin, lam
+        accepted = torch.zeros_like(active)
+        converged = torch.zeros_like(active)
+        tries = torch.zeros_like(it)
+        trying = active.clone()
+        while bool(trying.any()):
+            delta = _solve_damped_lanes(H, g, lam_i) * fmask
+            cand = retract_fn(params, delta)
+            cand_cost = cost_fn(cand)
+            good = torch.isfinite(cand_cost) & (cand_cost < cost_lin)
+            conv = good & ((cost_lin - cand_cost) / denom < cfg.ftol)
+            lam_new = torch.where(good, torch.clamp(lam_i * cfg.lam_down, min=cfg.lam_min),
+                                  torch.clamp(lam_i * cfg.lam_up, max=cfg.lam_max))
+            lam_i = torch.where(trying, lam_new, lam_i)
+            take = trying & good
+            best_params = _select(take, cand, best_params)
+            best_cost = torch.where(take, cand_cost, best_cost)
+            accepted = torch.where(trying, good, accepted)
+            converged = torch.where(trying, conv, converged)
+            tries = tries + trying.to(tries.dtype)
+            trying = active & ~accepted & (tries < cfg.max_inner)
+        new_status = torch.where(converged, STATUS_CONVERGED,
+                                 torch.where(accepted, STATUS_MAX_ITERS, STATUS_NO_PROGRESS))
+        rec = active & (it < cfg.history_len)
+        lane = torch.arange(n_lanes, device=device)
+        hist[lane[rec], it[rec]] = best_cost[rec]
+        params = _select(active, best_params, params)
+        cost = torch.where(active, best_cost, cost)
+        lam = torch.where(active, lam_i, lam)
+        status = torch.where(active, new_status, status)
+        it = it + active.to(it.dtype)
+        active = (it < cfg.max_iters) & (status == STATUS_MAX_ITERS)
+    return LMResult(params, cost, it, lam, status == STATUS_CONVERGED, status, hist,
+                    time.perf_counter() - t_start, n_lin)
+
+
 def _predicted_decrease(H, g, delta):
     """-(g . d + 0.5 d.H.d) for a dense masked system; None for any other
     form of H, where the caller falls back to multiplicative damping."""

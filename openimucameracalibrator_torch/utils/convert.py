@@ -62,7 +62,8 @@ BA_PARAM_KEYS = ("cam", "q_cw", "t_cw", "pts")
 
 def ba_params_from_numpy(d: dict, device=None, dtype=None) -> dict:
     """Camera-calibrator parameter dict (``cam``, ``q_cw``, ``t_cw``,
-    ``pts``) of numpy arrays -> dict of tensors."""
+    ``pts``) of numpy arrays -> dict of tensors; a leading lane axis (the
+    lane-stacked dict of ``calibrate_camera_batch``) is kept."""
     device = precision.resolve_device(device)
     dtype = precision.resolve(dtype, device)
     if set(d) != set(BA_PARAM_KEYS):

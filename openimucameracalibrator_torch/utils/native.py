@@ -1,11 +1,13 @@
-"""Build and load the port's hand-written CUDA kernels.
+"""Build and load the port's native code: the hand-written CUDA kernels
+and the host C++ libraries.
 
-Counterpart of ``utils/native.py`` of the JAX package (which builds the
-GPMF reader with ``g++``). Each ``csrc/*.cu`` source is compiled with
-``nvcc`` for ``sm_90a`` into a shared library with a plain C interface,
+Counterpart of ``utils/native.py`` of the JAX package. Each ``csrc/*.cu``
+source is compiled with ``nvcc`` for ``sm_90a`` (:func:`build`), each
+``csrc/*.cc`` host source with ``g++`` (:func:`load_host_library`, the
+JAX package's flags), into a shared library with a plain C interface,
 one ``.so`` per hash of the source and flags, under the git-ignored
 ``csrc/build/``, and loaded with ``ctypes``. Nothing here runs at import:
-the first call of a kernel's wrapper builds it.
+the first call that needs a library builds it.
 
 Builds of different sources may run at the same time (one ``nvcc`` each,
 e.g. from a thread pool); a per-source lock makes a second caller of the
@@ -27,6 +29,7 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
 BUILD_DIR = os.path.join(CSRC, "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+GXX_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
 
 
 @dataclasses.dataclass
@@ -35,8 +38,8 @@ class Library:
 
     lib: ctypes.CDLL
     path: str
-    build_seconds: float  # nvcc (0 when the .so was already built) plus loading
-    build_log: str  # nvcc's stderr: the ptxas register/spill report
+    build_seconds: float  # the compiler (0 when the .so was already built) plus loading
+    build_log: str  # the compiler's stderr (nvcc: the ptxas register/spill report)
 
 
 _LOADED: dict = {}
@@ -53,13 +56,9 @@ def nvcc() -> str:
                        "(set CUDA_HOME or put nvcc on PATH)")
 
 
-def build(source: str, symbols: dict) -> Library:
-    """Compile ``csrc/<source>`` once per source hash and load it.
-
-    ``symbols`` maps each exported C function to ``(argtypes, restype)``;
-    pointers and streams must be ``ctypes.c_void_p`` (a plain int would be
-    cut to 32 bits). Every library also exports ``oicc_error_string``.
-    """
+def _compile(source: str, compiler: list, flags: tuple, symbols: dict) -> Library:
+    """Compile ``csrc/<source>`` once per hash of source and flags, load
+    it, and declare ``symbols`` (name -> (argtypes, restype))."""
     with _LOCKS_GUARD:
         lock = _LOCKS.setdefault(source, threading.Lock())
     with lock:
@@ -67,7 +66,7 @@ def build(source: str, symbols: dict) -> Library:
             return _LOADED[source]
         src = os.path.join(CSRC, source)
         with open(src, "rb") as f:
-            digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+            digest = hashlib.sha256(f.read() + " ".join(flags).encode()).hexdigest()[:16]
         os.makedirs(BUILD_DIR, exist_ok=True)
         stem = os.path.splitext(source)[0]
         path = os.path.join(BUILD_DIR, f"lib{stem}_{digest}.so")
@@ -75,21 +74,40 @@ def build(source: str, symbols: dict) -> Library:
         log = ""
         if not os.path.exists(path):
             tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
-            proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+            proc = subprocess.run([*compiler, *flags, "-o", tmp, src],
                                   capture_output=True, text=True)
             if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed building {src}:\n{proc.stderr}")
+                raise RuntimeError(f"{compiler[0]} failed building {src}:\n{proc.stderr}")
             os.replace(tmp, path)
             log = proc.stderr
         lib = ctypes.CDLL(path)
         for name, (argtypes, restype) in symbols.items():
             fn = getattr(lib, name)
             fn.argtypes, fn.restype = argtypes, restype
-        lib.oicc_error_string.argtypes = [ctypes.c_int]
-        lib.oicc_error_string.restype = ctypes.c_char_p
         out = Library(lib, path, time.perf_counter() - t0, log)
         _LOADED[source] = out
         return out
+
+
+def build(source: str, symbols: dict) -> Library:
+    """Compile the CUDA source ``csrc/<source>`` once per source hash and
+    load it.
+
+    ``symbols`` maps each exported C function to ``(argtypes, restype)``;
+    pointers and streams must be ``ctypes.c_void_p`` (a plain int would be
+    cut to 32 bits). Every kernel library also exports ``oicc_error_string``.
+    """
+    return _compile(source, [nvcc()], NVCC_FLAGS, dict(
+        symbols, oicc_error_string=([ctypes.c_int], ctypes.c_char_p)))
+
+
+def load_host_library(source: str, symbols: dict) -> Library:
+    """Compile the host C++ source ``csrc/<source>`` with ``g++`` once per
+    source hash and load it (the GPMF reader, ``core/gpmf.py``)."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError(f"g++ not found: csrc/{source} is built with g++ (put it on PATH)")
+    return _compile(source, [gxx], GXX_FLAGS, symbols)
 
 
 def check(lib: Library, err: int, what: str) -> None:

@@ -278,3 +278,76 @@ def write_stage8_inputs(scene: SyntheticScene, out_dir: str, *, cam_fps: float,
                    "r3": {"knot_spacing": dt_r3, "weighting_factor": std_r3},
                    "camera_fps": cam_fps}, f, indent=1)
     return paths
+
+
+# imu_tk-style sensor model of the multi-pose static IMU calibration scene:
+# raw = (T K)^-1 true + b, accelerometer (T upper triangular) and gyroscope
+# (T full), the values of the JAX package's tests/test_static_imu.py.
+MULTIPOSE_TRUTH = {
+    "accel_misalignment": np.array([[1.0, -0.01, 0.004], [0.0, 1.0, -0.006], [0.0, 0.0, 1.0]]),
+    "accel_scale": np.array([1.02, 0.98, 1.01]),
+    "accel_bias": np.array([0.15, -0.12, 0.2]),
+    "gyro_misalignment": np.array([[1.0, -0.005, 0.003], [0.006, 1.0, -0.004],
+                                   [-0.002, 0.008, 1.0]]),
+    "gyro_scale": np.array([1.015, 0.985, 1.005]),
+    "gyro_bias": np.array([0.01, -0.008, 0.012]),
+}
+
+
+def make_multipose_imu(rng: np.random.Generator, n_poses: int = 16, rate: float = 100.0,
+                       static_s: float = 4.0, motion_s: float = 2.0,
+                       init_static_s: float = 6.0):
+    """Random tumble sequence for the static multi-pose IMU calibration:
+    static poses joined by smooth rotations, raw readings per
+    ``MULTIPOSE_TRUTH`` plus white noise (0.004 m/s^2, 0.001 rad/s).
+
+    Host float64; ``rng``'s draws are taken in the order of the JAX
+    package's ``tests/test_static_imu.make_multipose_data``, so the same
+    seed gives the same data. Returns ``ImuData``.
+    """
+    from openimucameracalibrator_torch.utils.types import ImuData
+
+    tr = MULTIPOSE_TRUTH
+    tka_inv = np.linalg.inv(tr["accel_misalignment"] @ np.diag(tr["accel_scale"]))
+    tkg_inv = np.linalg.inv(tr["gyro_misalignment"] @ np.diag(tr["gyro_scale"]))
+    dt = 1.0 / rate
+    g_w = torch.tensor([0.0, 0.0, GRAVITY], dtype=torch.float64)
+    q = torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=torch.float64)
+    acc_true, gyr_true, noise = [], [], []
+
+    def g_body(q):
+        return lie.quat_rotate(lie.quat_conjugate(q), g_w).numpy()
+
+    def emit(w_true, g_b):
+        acc_true.append(g_b)
+        gyr_true.append(w_true)
+        noise.append(rng.normal(size=(len(w_true), 2, 3)))
+
+    def emit_static(duration, q):
+        n = int(duration * rate)
+        emit(np.zeros((n, 3)), np.tile(g_body(q), (n, 1)))
+
+    def emit_motion(duration, q):
+        n = int(duration * rate)
+        axis = rng.normal(size=3)
+        axis /= np.linalg.norm(axis)
+        # Smooth bump rotation profile; quasi-static tumble (rotation about
+        # the sensor), so the specific force stays gravity.
+        w = axis * (np.sin(np.pi * np.arange(n) / n) ** 2)[:, None] * 1.6
+        g_b = np.zeros((n, 3))
+        for k in range(n):
+            g_b[k] = g_body(q)
+            q = lie.quat_multiply(q, lie.so3_exp(torch.as_tensor(w[k] * dt)))
+        emit(w, g_b)
+        return q
+
+    emit_static(init_static_s, q)
+    for _ in range(n_poses - 1):
+        q = emit_motion(motion_s, q)
+        emit_static(static_s, q)
+    a, w, e = (np.concatenate(x) for x in (acc_true, gyr_true, noise))
+    accel = a @ tka_inv.T + tr["accel_bias"] + e[:, 0] * 0.004
+    gyro = w @ tkg_inv.T + tr["gyro_bias"] + e[:, 1] * 0.001
+    # Times accumulate dt sample by sample, as the JAX test's clock does.
+    times = np.concatenate([[0.0], np.cumsum(np.full(len(a) - 1, dt))])
+    return ImuData(times=times, accel=accel, gyro=gyro)

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain versions (K1, K2 and K2's
-block mode), and the stage-8 input stages against the same functions on
-the CPU, on the card.
+block mode), and the stage-8 input stages, the static IMU calibration and
+the batched camera calibration against the same functions on the CPU, on
+the card.
 
 Every test here is marked ``cuda`` and skips without a CUDA device. This
 file imports no JAX, so it also runs where only the port is installed,
@@ -13,7 +14,8 @@ import numpy as np
 import pytest
 import torch
 
-from openimucameracalibrator_torch.core import imu_cam_rotation, pose_estimator
+from openimucameracalibrator_torch.core import (camera_calibrator, imu_cam_rotation,
+                                                pose_estimator, static_imu_calibrator)
 from openimucameracalibrator_torch.detect import image, kernels, render
 from openimucameracalibrator_torch.models import cameras
 from openimucameracalibrator_torch.ops import lie
@@ -234,3 +236,59 @@ def test_pose_and_rotation_init_on_the_card_match_the_cpu(cuda_device):
         torch.as_tensor(i_gpu.q_gyro_to_cam), torch.as_tensor(i_cpu.q_gyro_to_cam)))
     assert float(q_err) < 1e-4
     np.testing.assert_allclose(i_gpu.gyro_bias, i_cpu.gyro_bias, rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_static_imu_calibration_on_the_card_matches_the_cpu(cuda_device):
+    """static_imu_calibrator.calibrate in float32 on the card against
+    float64 on the CPU, on tests/test_static_imu.py's multi-pose data: the
+    same static intervals; accelerometer parameters within 2e-5 (float32
+    of a fit to static means of ~10 m/s^2: ~1e-7 relative per residual);
+    gyroscope parameters within 5e-4 (the RK4 product of ~220 float32
+    steps per segment carries ~1e-5 into residuals of ~1e-4)."""
+    imu = synthetic.make_multipose_imu(np.random.default_rng(42))
+    opts = static_imu_calibrator.StaticImuCalibratorOptions(
+        init_static_duration_s=5.0, min_intervals=12, min_interval_samples=150)
+    a_cpu, g_cpu, i_cpu = static_imu_calibrator.calibrate(imu, opts, device="cpu")
+    a_gpu, g_gpu, i_gpu = static_imu_calibrator.calibrate(imu, opts, device=cuda_device)
+    assert (i_gpu["num_intervals"], i_gpu["threshold_mult"]) == (
+        i_cpu["num_intervals"], i_cpu["threshold_mult"])
+    for k in ("misalignment", "scale", "bias"):
+        np.testing.assert_allclose(getattr(a_gpu, k), getattr(a_cpu, k), rtol=0, atol=2e-5)
+        np.testing.assert_allclose(getattr(g_gpu, k), getattr(g_cpu, k), rtol=0, atol=5e-4)
+
+
+@pytest.mark.cuda
+def test_camera_batch_on_the_card_matches_the_cpu(cuda_device):
+    """calibrate_camera_batch in float32 on the card against float64 on the
+    CPU: three models (double sphere with its multi-start lanes), 16 views
+    each of the port's intrinsics scene. The same picked views; camera
+    parameters within 1e-4 relative and mean reprojection errors within
+    1e-3 relative (a float32 BA minimum). For the double sphere, whose
+    (f, xi) has near-equivalent mirror families over a finite field of
+    view (the float32 and float64 multi-starts may keep lanes of different
+    families at near-equal cost), the family-invariant near-axis
+    magnification f / (1 + xi) and the principal point, as
+    tests/test_camera_calibrator.py holds it."""
+    true = {"pinhole": [437.0, 437.5, 481.0, 271.5],
+            "division_undistortion": [437.13, 489.07, 270.87, -1.4386e-06],
+            "double_sphere": [364.0, 364.5, 480.0, 270.0, -0.2, 0.55]}
+    jobs = []
+    for i, (name, p) in enumerate(true.items()):
+        sc = synthetic.make_intrinsics_scene(cameras.get_model(name), p, num_views=16,
+                                             seed=3 + i, device="cpu")
+        jobs.append((name, CornerDataset(sc.frame_times, sc.observations, sc.obs_valid,
+                                         np.asarray(sc.board.points), sc.image_size, 30.0)))
+    opts = camera_calibrator.CameraCalibratorOptions(grid_size=0.01, min_num_views=5)
+    got = camera_calibrator.calibrate_camera_batch(jobs, opts, device=cuda_device)
+    want = camera_calibrator.calibrate_camera_batch(jobs, opts, device="cpu")
+    for (cg, dg), (cw, dw) in zip(got, want, strict=True):
+        assert cg.model_name == cw.model_name
+        np.testing.assert_array_equal(dg["picked_views"], dw["picked_views"])
+        if cg.model_name == "double_sphere":
+            mag_g, mag_w = cg.params[0] / (1 + cg.params[4]), cw.params[0] / (1 + cw.params[4])
+            assert mag_g == pytest.approx(mag_w, rel=1e-4)
+            np.testing.assert_allclose(cg.params[2:4], cw.params[2:4], rtol=1e-4, atol=0)
+        else:
+            np.testing.assert_allclose(cg.params, cw.params, rtol=1e-4, atol=0)
+        assert cg.mean_reproj_error == pytest.approx(cw.mean_reproj_error, rel=1e-3)

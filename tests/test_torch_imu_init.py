@@ -304,8 +304,11 @@ def test_telemetry_writers_and_gps_helpers_match_jax(tmp_path):
         np.testing.assert_array_equal(x, y)
     m_t, m_j = t_tel.merge_telemetry([tel_t, tel_t]), j_tel.merge_telemetry([tel_j, tel_j])
     _assert_same_telemetry(m_t, m_j)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_tel.read_gopro_mp4(str(tmp_path / "x.MP4"))
+    # GoPro MP4s go to the GPMF reader (tests/test_torch_gpmf.py), which
+    # fails on a missing file as the JAX package's does.
+    for tel_mod in (t_tel, j_tel):
+        with pytest.raises(FileNotFoundError):
+            tel_mod.read_gopro_mp4(str(tmp_path / "x.MP4"))
 
 
 @pytest.mark.parametrize("name", ["static", "dynamic"])
@@ -324,9 +327,13 @@ def test_misc_tools_sew_and_biases_match_jax(recordings, tmp_path, name):
             with open(out) as f:
                 outs.append(json.load(f))
         assert outs[0] == outs[1], tool
+    # The other tools are ported (tests/test_torch_static_imu.py,
+    # test_torch_recorded.py): like the JAX package's, each needs its
+    # arguments.
     for tool in ("static_imu_main", "allan_main", "debug_calib_main", "result_stats_main"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            getattr(t_misc, tool)([])
+        for mod in (t_misc, j_misc):
+            with pytest.raises(SystemExit):
+                getattr(mod, tool)([])
     # extract-frames decodes video through cv2 and says so without it
     # (board_main: tests/test_torch_charuco.py)
     with pytest.MonkeyPatch.context() as mp:

@@ -233,8 +233,10 @@ def test_run_calibration_hands_stage_8_the_library_chain(workspace, cli_run):
 @pytest.mark.parametrize("extra, error, match", [
     (["--num_processes", "2"], NotImplementedError, "ROADMAP"),
     (["--detector_kernel", "pallas"], ValueError, "only 'auto'"),
-    (["--telemetry_format", "gopro", "--telemetry_json", "rec.MP4"], NotImplementedError,
-     "ROADMAP"),
+    # GoPro MP4 telemetry is ported (tests/test_torch_gpmf.py,
+    # test_torch_recorded.py): a missing MP4 is reported by name
+    (["--telemetry_format", "gopro", "--telemetry_json", "rec.MP4"], FileNotFoundError,
+     "rec.MP4"),
     # charuco (the default board) is ported: detecting again means decoding
     # the video, which needs cv2, as does the OpenCV backend
     (["--board_type", "charuco", "--recompute_corners"], ImportError, "cv2"),
@@ -243,7 +245,8 @@ def test_run_calibration_hands_stage_8_the_library_chain(workspace, cli_run):
 def test_run_calibration_rejects_what_is_not_ported(workspace, tmp_path, monkeypatch, extra,
                                                     error, match):
     """What the port does not do raises, naming its ROADMAP.md item; what
-    needs cv2 says so where cv2 is not installed (simulated here)."""
+    needs cv2 says so where cv2 is not installed (simulated here); a GoPro
+    MP4 that is not there is named."""
     _, ws, tel = workspace
     w = str(tmp_path)
     for f in ("cam_corners.uson", "imu_cam_corners.uson"):
