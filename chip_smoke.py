@@ -81,6 +81,29 @@ Phases (every failure exits non-zero; nothing is caught and carried on):
                synthetic.make_multipose_imu), read back with
                io.load_imu_intrinsics and held to that test's bars; the gyro
                LM's time, and its CUDA launches counted by torch.profiler.
+12. batch    — core/batch_estimator.optimize_batch on four DS3-scale sequences
+               (bench.py's measure_batch: 60 / 54 / 57 / 60 s, seeds 7-10,
+               float32, obs / imu chunks 4096 / 256), started ~17 mrad, 10 mm,
+               3 ms and one frame time per 540 rows off: independent mode
+               (each sequence held to phase 5's bars, sequence 0 against its
+               own single solve) and joint mode (the shared blocks identical,
+               every sequence held to the same bars); exactly 3 K1 launches
+               per batched linearization, each family's first held against
+               its plain version; one batched linearization timed against the
+               four single ones, with its peak memory, and its sequential
+               (one chunk at a time) mode; K1 timed at the batched shapes.
+13. sharded  — parallel/sharded.py and parallel/schur.py over 4 shards of the
+               card on the 60 s problem: the summed normal equations against
+               the single-device linearizer, 3 LM iterations of each solver
+               against the single-device solve, K1 launches per shard; then
+               the process-group layout: the sharded solve at world size 1 on
+               NCCL, and on 2 ranks of the card over gloo in subprocesses
+               (each loads only its time slice; 600 s limit, killed on expiry).
+14. batch CLI — apps/batch_calibration --mode joint on two short
+               make_recording captures (tests/test_batch_cli.py's settings)
+               rendered on the card, their frames fed to the detectors as in
+               phase 10, intrinsics from the first capture's intrinsics video;
+               held to that test's bars, K2 and K1 launches counted.
 
 The line before the last is a JSON object listing every ported kernel; the
 last line is ``{"ok": true, "device": {...}}``. Needs one CUDA device and
@@ -136,6 +159,22 @@ GOPRO = dict(model_name="division_undistortion", image_size=(960, 540), duration
 GOPRO_TPU = dict(intrinsics_reproj_px=0.2993, final_reproj_px=0.4731, time_offset_err_ms=0.29,
                  line_delay_err_us=0.444)
 CAM_VIDEO_FPS = 2.0  # make_recording's intrinsics video rate
+
+# Batch path: bench.py's measure_batch configuration (bench.py:415-470), four
+# DS3-scale sequences of these lengths and scene seeds, float32.
+BATCH_DURATIONS = (60.0, 54.0, 57.0, 60.0)
+BATCH_SEEDS = (7, 8, 9, 10)
+BATCH_CHUNKS = dict(obs_chunk=4096, imu_chunk=256)
+# Sharded and Schur paths: the 60 s DS3 problem over 4 shards of one card,
+# with the chunk sizes of bench.py's scaling stage (bench.py:326-368).
+SHARDS = 4
+SHARD_CHUNKS = dict(obs_chunk=4096, imu_chunk=1024)
+RANK_TIMEOUT_S = 600
+# Batch CLI: tests/test_batch_cli.py's two recordings.
+BATCH_CLI = dict(duration=6.0, cam_fps=10.0, image_size=(640, 360), intrinsics_frames=25,
+                 time_offset=-0.08, supersample=2, squares_x=8, squares_y=6,
+                 square_length=0.06, marker_length=0.045)
+BATCH_CLI_SEEDS = (3, 11)
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and fp32 CUDA-core FLOP/s.
 HBM_BYTES_S = 3.35e12
@@ -282,7 +321,7 @@ def check_gram(gram, name, J, r, idx, segs, L):
     return err
 
 
-def checking_gram_spy(gram, checked):
+def checking_gram_spy(gram, checked, label="pipeline's stage 8"):
     """A stand-in for ``gram.fused_gram`` that launches the kernel as the
     path asks (one counted launch per call) and, on the first call of each
     family, holds that launch's result against the plain version on the same
@@ -297,7 +336,7 @@ def checking_gram_spy(gram, checked):
             gram.fused_gram = spy
         if tag not in checked:
             K, R, F = J.shape
-            err = gram_agrees(gram, f"{tag}, pipeline's stage 8", J, r, idx, segs, L, H, g)
+            err = gram_agrees(gram, f"{tag}, {label}", J, r, idx, segs, L, H, g)
             checked[tag] = dict(max_abs_err=err, K=K, R=R, F=F, L=int(L))
         return H, g
 
@@ -330,6 +369,17 @@ def time_gram(gram, J, r, idx, segs, L):
             library_ms)
 
 
+def gram_bound(K, R, F, L, n_run):
+    """(bound_ms, bytes ms, operations ms, bytes, operations) of one K1 call:
+    each input read once, each output written once; the operations this
+    data needs (F nonzeros per row of D: the upper triangle of each row's
+    outer product, plus g)."""
+    nbytes = K * R * (F + 1 + n_run) * 4 + K * (L * L + L) * 4
+    ops = K * R * (F * (F + 1) + 2 * F)
+    t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, ops / FP32_FLOP_S * 1e3
+    return max(t_bytes, t_ops), t_bytes, t_ops, nbytes, ops
+
+
 def kernel_phase(gram, shapes, captured):
     """K1 against its plain version at each family, on uniformly random idx
     (nothing to skip) and on the linearizer's own inputs at the initial
@@ -352,15 +402,8 @@ def kernel_phase(gram, shapes, captured):
         assert tuple(J.shape) == (K, R, F), (name, tuple(J.shape), (K, R, F))
         err_main = check_gram(gram, f"{name}, main-path idx", J, r, idx, segs, L)
         device_ms, kernel_ms, plain_ms, library_ms = time_gram(gram, J, r, idx, segs, L)
-        # Least time for the same work: each input read once, each output
-        # written once; the operations this data needs (F nonzeros per row
-        # of D: the upper triangle of each row's outer product, plus g).
-        n_run = idx.shape[0]
-        nbytes = K * R * (F + 1 + n_run) * 4 + K * (L * L + L) * 4
-        ops = K * R * (F * (F + 1) + 2 * F)
+        bound_ms, t_bytes, t_ops, nbytes, ops = gram_bound(K, R, F, L, idx.shape[0])
         dense_ops = 2 * K * R * L * L
-        t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, ops / FP32_FLOP_S * 1e3
-        bound_ms = max(t_bytes, t_ops)
         log(f"kernel[{name}] main-path idx: kernel_ms={kernel_ms:.4f} (per eager call; "
             f"{device_ms:.4f} device) plain_ms={plain_ms:.4f} "
             f"library_ms={library_ms:.4f}; random idx: kernel_ms={rand_ms:.4f} (per eager "
@@ -1282,14 +1325,20 @@ def static_imu_phase(torch, mods, tmp):
         raise SystemExit("static IMU checks failed")
 
 
-def ds3_problem(duration, device):
-    """The DS3 recording cut to ``duration`` seconds, as a spline problem on
-    ``device`` with its truth-seeded initial point: (problem, params, scene).
-    No files: what scripts/sweep_torch_banded.py times the solves on."""
+def ds3_problem(duration, device, seed=7, perturb=False):
+    """The DS3 recording cut to ``duration`` seconds (scene ``seed``), as a
+    spline problem on ``device`` with its truth-seeded initial point:
+    (problem, params, scene). No files: what scripts/sweep_torch_banded.py
+    times the solves on. ``perturb`` starts away from the truth instead:
+    T_imu_cam rotated by ~17 mrad and moved by 10 mm per axis, the clock
+    offset INIT_TIME_ERR off (the problem is built on it, so the solve's
+    offset is the final offset's error from it) and the line delay at one
+    frame time over 540 rows (bench.py's start)."""
     import torch
 
     from openimucameracalibrator_torch.core import spline_estimator as se
     from openimucameracalibrator_torch.models import cameras
+    from openimucameracalibrator_torch.ops import lie
     from openimucameracalibrator_torch.utils import synthetic
     from openimucameracalibrator_torch.utils.types import (CameraCalibration, CornerDataset,
                                                            ImuData, PoseDataset,
@@ -1297,21 +1346,26 @@ def ds3_problem(duration, device):
 
     sc = synthetic.make_imu_camera_scene(
         cameras.get_model("division_undistortion"), CAM, duration=duration, cam_fps=CAM_FPS,
-        imu_rate=IMU_RATE, time_offset=TIME_OFFSET, line_delay=LINE_DELAY, seed=7,
+        imu_rate=IMU_RATE, time_offset=TIME_OFFSET, line_delay=LINE_DELAY, seed=seed,
         device=device)
     corners = CornerDataset(sc.frame_times, sc.observations, sc.obs_valid, sc.board.points,
                             sc.image_size, CAM_FPS)
     imu = ImuData(sc.imu_times, sc.accel, sc.gyro)
+    offset = TIME_OFFSET + (INIT_TIME_ERR if perturb else 0.0)
     p = se.build_problem(corners, CameraCalibration(sc.model.name, sc.cam_params,
                                                     sc.image_size, 0.0), imu,
-                         SplineWeightingData(cam_fps=CAM_FPS, **SEW), TIME_OFFSET,
+                         SplineWeightingData(cam_fps=CAM_FPS, **SEW), offset,
                          rolling_shutter=True, device=device)
     poses = PoseDataset(sc.frame_times, sc.q_w_c, sc.t_w_c, np.ones(len(sc.frame_times), bool),
                         sc.board.points)
-    params = se.init_spline_params(poses, sc.q_i_c, sc.t_i_c, p, imu,
-                                   pose_time_offset=TIME_OFFSET, device=device)
-    params["line_delay"] = torch.tensor([LINE_DELAY], dtype=params["line_delay"].dtype,
-                                        device=device)
+    q_i_c, t_i_c, ld = sc.q_i_c, sc.t_i_c, LINE_DELAY
+    if perturb:
+        q_i_c = lie.quat_boxplus(torch.as_tensor(np.asarray(sc.q_i_c), dtype=torch.float64),
+                                 torch.tensor([0.01, -0.01, 0.01], dtype=torch.float64)).numpy()
+        t_i_c, ld = np.asarray(sc.t_i_c) + 0.01, 1.0 / CAM_FPS / 540
+    params = se.init_spline_params(poses, q_i_c, t_i_c, p, imu, pose_time_offset=offset,
+                                   device=device)
+    params["line_delay"] = torch.tensor([ld], dtype=params["line_delay"].dtype, device=device)
     return p, params, sc
 
 
@@ -1367,6 +1421,443 @@ def stage8_setup(torch, device, tmp, duration=DURATION):
                                  shapes=shapes, D=D, params0=params0, lin=lin)
 
 
+def stage8_bars(se, lie, torch, p, prm, scene):
+    """The main phase's stage-8 bars for one solved sequence built by
+    ds3_problem(perturb=True): {name: (ok, value)}."""
+    rot = float(torch.linalg.vector_norm(lie.quat_boxminus(
+        prm["q_i_c"].double().cpu(), torch.as_tensor(np.asarray(scene.q_i_c), dtype=torch.float64))))
+    dt = abs(TIME_OFFSET + INIT_TIME_ERR + float(prm["time_offset"][0]) - TIME_OFFSET)
+    ld = float(prm["line_delay"][0])
+    t_err = float(np.max(np.abs(prm["t_i_c"].double().cpu().numpy() - np.asarray(scene.t_i_c))))
+    reproj = se.mean_reprojection_error(p, prm)
+    return {"rotation error < 0.01 rad": (rot < 0.01, rot),
+            "|time offset - truth| < 2 ms": (dt < 2e-3, dt),
+            "line delay within 30% of truth": (abs(ld - LINE_DELAY) < 0.3 * LINE_DELAY, ld),
+            "t_i_c within 20 mm per axis": (t_err < 0.02, t_err),
+            "mean reprojection error < 0.35 px": (reproj < 0.35 and math.isfinite(reproj),
+                                                  reproj)}
+
+
+def gram_row(gram, name, J, r, idx, segs, L, launches):
+    """K1 checked and timed on one captured input (time_gram), with its
+    bound: a row of the kernels line."""
+    K, R, F = J.shape
+    err = check_gram(gram, name, J, r, idx, segs, L)
+    device_ms, kernel_ms, plain_ms, library_ms = time_gram(gram, J, r, idx, segs, L)
+    bound_ms, t_bytes, t_ops, nbytes, ops = gram_bound(K, R, F, L, idx.shape[0])
+    log(f"kernel[{name}] K={K} R={R} F={F} L={L}: kernel_ms={kernel_ms:.4f} (per eager call; "
+        f"{device_ms:.4f} device) plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
+        f"bound_ms={bound_ms:.5f} ({'bytes' if t_bytes >= t_ops else 'operations'}: "
+        f"{nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP; share {100 * bound_ms / device_ms:.2f} % "
+        f"of the device time)")
+    return dict(name=f"fused_gram[{name}]", route="cuda", source=SOURCE, replaces=REPLACES,
+                launches=launches, max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by="bytes" if t_bytes >= t_ops else "operations",
+                library_ms=library_ms, ms_device=device_ms, shape=dict(K=K, R=R, F=F, L=int(L)))
+
+
+def _counted(gram, checked, label, fn):
+    """fn() with K1's launches counted from 0 and each family's first launch
+    held against its plain version: (result, wall s, launches by family)."""
+    real = gram.fused_gram
+    gram.reset_counts()
+    gram.fused_gram = checking_gram_spy(gram, checked, label)
+    try:
+        t0 = time.perf_counter()
+        out = fn()
+        import torch
+
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        gram.fused_gram = real
+    return out, wall, dict(gram.fused_gram.launches_by_tag)
+
+
+def batch_phase(torch, mods):
+    """Multi-sequence batch calibration on the card (phase 12): N=4 DS3-scale
+    sequences (bench.py's measure_batch), both modes, the batched
+    linearizer's time and memory against single-sequence ones, its
+    sequential mode, and K1 at the batched shapes. Returns K1 rows at the
+    batched shapes and the launches by family of each mode."""
+    se, be, lm, gram, lie = mods
+    t0 = time.perf_counter()
+    built = [ds3_problem(d, "cuda", seed=s, perturb=True)
+             for d, s in zip(BATCH_DURATIONS, BATCH_SEEDS)]
+    problems, inits, scenes = (list(x) for x in zip(*built))
+    torch.cuda.synchronize()
+    log(f"[batch] {len(problems)} DS3 sequences ({', '.join(f'{d:.0f} s' for d in BATCH_DURATIONS)}"
+        f", seeds {BATCH_SEEDS}) built in {time.perf_counter() - t0:.2f} s; tangent dims "
+        f"{[se.build_layout(p).tangent_dim for p in problems]}")
+    batch = be.build_sequence_batch(problems, **BATCH_CHUNKS)
+    layout = se.build_layout(batch.p_ref)
+    shapes = se.gram_layouts(batch.p_ref, batch.plans)
+    max_f, max_run = gram.build().lib.oicc_gram_max_f(), gram.build().lib.oicc_gram_max_run()
+    for (name, (rd, F, segs, L)), plan in zip(shapes.items(), batch.plans):
+        n_run = sum(1 for sg in segs if sg[0] == "run")
+        log(f"[batch] {name}: common plan K={plan.n_chunks} per sequence ({batch.n_seq * plan.n_chunks}"
+            f" in one launch), chunk {plan.chunk}, w_s={plan.w_s} w_r={plan.w_r}, L={L}, F={F}, "
+            f"runs={n_run} (K1 limits: F <= {max_f}, runs <= {max_run})")
+        if F > max_f or n_run > max_run:
+            raise SystemExit(f"batched {name} family is outside K1's limits")
+    params_b = be.stack_params(batch, inits)
+    lin_b = be.make_batch_linearizer(batch, layout)
+
+    # Time and memory: one batched linearization against the four single ones.
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ms_b = cuda_ms(lambda: lin_b(params_b), warm=2, reps=5)
+    peak_b = torch.cuda.max_memory_allocated()
+    ms_1 = []
+    for p, prm in zip(problems, inits):
+        lin1, _ = se.make_solver_functions_fast(p, se.build_layout(p), **BATCH_CHUNKS)
+        ms_1.append(cuda_ms(lambda: lin1(prm), warm=2, reps=5))
+    torch.cuda.empty_cache()
+    lin_s = be.make_batch_linearizer(batch, layout, sequential=True)
+    Hb, gb, cb = lin_b(params_b)
+    lin_s(params_b)  # builds its per-chunk index tables
+    torch.cuda.reset_peak_memory_stats()
+    gram.reset_counts()
+    out = []  # one call (one launch per chunk and family, ~10 s), timed with CUDA events
+    ms_s = cuda_ms(lambda: out.append(lin_s(params_b)), warm=0, reps=1)
+    Hs, gs, cs = out.pop()
+    seq_counts = dict(gram.fused_gram.launches_by_tag)
+    peak_s = torch.cuda.max_memory_allocated()
+    seq_err = dict(H=((Hs - Hb).abs().max() / Hb.abs().max()).item(),
+                   g=((gs - gb).abs().max() / gb.abs().max()).item(),
+                   cost=((cs - cb).abs().max() / cb.abs().max()).item())
+    want_seq = {"obs": batch.plans[0].n_chunks, "accel": batch.plans[1].n_chunks,
+                "gyro": batch.plans[2].n_chunks}
+    del Hs, gs, Hb, gb
+    log(f"[batch] linearize N=4 batched {ms_b:.2f} ms vs single {[round(m, 2) for m in ms_1]} "
+        f"ms (sum {sum(ms_1):.2f}, 4x mean {4 * np.mean(ms_1):.2f}); ratio batched / sum "
+        f"{ms_b / sum(ms_1):.3f}; peak memory {peak_b / 2**20:.0f} MiB (CUDA events)")
+    log(f"[batch] sequential mode: {ms_s:.2f} ms, peak memory {peak_s / 2**20:.0f} MiB, K1 "
+        f"launches {seq_counts} (one per chunk: {want_seq}); against the batched mode H rel "
+        f"{seq_err['H']:.2e}, g rel {seq_err['g']:.2e}, cost rel {seq_err['cost']:.2e}")
+
+    # K1 at the batched shapes, on the linearizer's own inputs.
+    captured = capture_linearizer_inputs(gram, lin_b, params_b)
+    rows = {}
+    for name, (rd, F, segs, L) in shapes.items():
+        J, r, idx = captured[name]
+        rows[name] = gram_row(gram, f"{name}, batch N={batch.n_seq}", J, r, idx, segs, L, 0)
+    del captured
+    torch.cuda.empty_cache()
+
+    flags = se.DEFAULT_FLAGS | {se.CAM_LINE_DELAY, se.TIME_OFFSET}
+    cfg = lm.LMConfig(max_iters=30, ftol=1e-4)
+    checks, counts, checked = {}, {}, {}
+    for mode in ("independent", "joint"):
+        checked[mode] = {}
+        torch.cuda.reset_peak_memory_stats()
+        res, wall, counts[mode] = _counted(gram, checked[mode], f"batch {mode}", lambda: (
+            be.optimize_batch(problems, inits, flags=flags, config=cfg, mode=mode,
+                              **BATCH_CHUNKS)))
+        n_lin = res.linearizations
+        its = (res.iterations.tolist() if torch.is_tensor(res.iterations) else res.iterations)
+        log(f"[batch] {mode}: wall {wall:.2f} s, LM iterations {its}, {n_lin} batched "
+            f"linearizations, loop {res.seconds:.2f} s, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB, K1 launches {counts[mode]}")
+        checks[f"{mode}: 3 K1 launches per batched linearization"] = n_lin > 0 and all(
+            counts[mode].get(f, 0) == n_lin for f in ("obs", "accel", "gyro")) and sum(
+            counts[mode].values()) == 3 * n_lin
+        checks[f"{mode}: K1 held against its plain version at each family's batched shapes"] = \
+            sorted(checked[mode]) == ["accel", "gyro", "obs"]
+        for i, (p, prm, sc) in enumerate(zip(problems, res.params, scenes)):
+            bars = stage8_bars(se, lie, torch, p, prm, sc)
+            log(f"[batch] {mode} sequence {i}: " + ", ".join(
+                f"{k.split(' ')[0]} {v:.4g}" for k, (_, v) in bars.items()))
+            for k, (ok, _) in bars.items():
+                checks[f"{mode} sequence {i}: {k}"] = ok
+        if mode == "independent":
+            t0 = time.perf_counter()
+            ref = se.optimize(problems[0], inits[0], flags, config=cfg, method="fast")
+            torch.cuda.synchronize()
+            c_b, c_1 = float(res.cost[0]), float(ref.cost)
+            log(f"[batch] sequence 0 alone: {ref.iterations} iterations, cost {c_1:.6e} "
+                f"(batched {c_b:.6e}, {int(res.iterations[0])} iterations), "
+                f"{time.perf_counter() - t0:.2f} s")
+            checks["independent sequence 0: cost within 1e-3 of its single solve"] = \
+                abs(c_b - c_1) <= 1e-3 * abs(c_1)
+            checks["independent sequence 0: the single solve's iteration count"] = \
+                int(res.iterations[0]) == ref.iterations
+        else:
+            checks["joint: the shared blocks are identical across sequences"] = all(
+                torch.equal(res.params[i][k], res.params[0][k])
+                for k in be.DEFAULT_SHARED for i in range(1, len(problems)))
+    checks["sequential mode: one K1 launch per chunk and family"] = seq_counts == want_seq
+    checks["sequential mode: H, g and cost equal the batched mode (rel 1e-5)"] = all(
+        v < 1e-5 for v in seq_err.values())
+    for k, ok in checks.items():
+        log(f"[batch] check {k}: {'ok' if ok else 'FAILED'}")
+    if not all(checks.values()):
+        raise SystemExit("batch checks failed")
+    for name, row in rows.items():
+        row["launches"] = counts["independent"].get(name, 0)
+        row["launches_joint"] = counts["joint"].get(name, 0)
+        row["max_abs_err_batch"] = max(checked[m][name]["max_abs_err"] for m in checked)
+    return rows, counts
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def sharded_phase(torch, mods):
+    """The data-parallel and knot-sharded Schur solvers on the card (phase
+    13): n=4 shards in one process against the single-device linearizer
+    and solve, then the process-group layout (world size 1 on NCCL, and two
+    ranks on the card over gloo in subprocesses). Returns K1 launches by
+    family of each solve."""
+    se, sharded, schur, multihost, lm, gram = mods
+    import torch.distributed as dist
+
+    p, params, _ = ds3_problem(DURATION, "cuda", seed=7, perturb=True)
+    layout = se.build_layout(p)
+    lin1, _ = se.make_solver_functions_fast(p, layout)
+    H0, g0, c0 = lin1(params)
+    mesh = sharded.make_mesh(SHARDS, device="cuda")
+    lin_sh, cost_sh, _ = sharded.make_sharded_fast_solver_functions(p, mesh, **SHARD_CHUNKS)
+    gram.reset_counts()
+    H1, g1, c1 = lin_sh(params)
+    torch.cuda.synchronize()
+    lin_counts = dict(gram.fused_gram.launches_by_tag)
+    err = dict(H=((H1 - H0).abs().max() / H0.abs().max()).item(),
+               g=((g1 - g0).abs().max() / g0.abs().max()).item(),
+               cost=abs(float(c1) - float(c0)) / abs(float(c0)))
+    ms_sh = cuda_ms(lambda: lin_sh(params), warm=1, reps=3)
+    ms_1 = cuda_ms(lambda: lin1(params), warm=1, reps=3)
+    del H1, g1, H0, g0
+    log(f"[sharded] {SHARDS} shards: H rel {err['H']:.2e}, g rel {err['g']:.2e}, cost rel "
+        f"{err['cost']:.2e} against the single-device linearizer; K1 launches {lin_counts}; "
+        f"linearize {ms_sh:.2f} ms (single device {ms_1:.2f} ms)")
+    flags = se.DEFAULT_FLAGS | {se.CAM_LINE_DELAY, se.TIME_OFFSET}
+    cfg = lm.LMConfig(max_iters=3, ftol=0.0)
+    t0 = time.perf_counter()
+    ref = se.optimize(p, params, flags, config=cfg, method="fast")
+    torch.cuda.synchronize()
+    log(f"[sharded] single-device solve: {ref.iterations} iterations, cost "
+        f"{float(ref.cost):.6e}, {time.perf_counter() - t0:.2f} s")
+    results, counts = {}, {}
+    for name, run in (("sharded", sharded.optimize_sharded), ("schur", schur.optimize_schur)):
+        checked = {}
+        res, wall, counts[name] = _counted(gram, checked, name, lambda: run(
+            p, params, mesh, flags, config=cfg, **SHARD_CHUNKS))
+        results[name] = (res, wall)
+        log(f"[sharded] {name} x{SHARDS}: {res.iterations} iterations, cost "
+            f"{float(res.cost):.6e}, wall {wall:.2f} s, K1 launches {counts[name]} for "
+            f"{res.linearizations} linearizations")
+    _, _, _, _, part = schur.make_schur_solver_functions(p, mesh, **SHARD_CHUNKS)
+    log(f"[sharded] schur partition: D={layout.tangent_dim}, local m={part.m}, separator "
+        f"S={part.S}")
+
+    # The process-group layout: world size 1 on NCCL in this process.
+    assert multihost.initialize(f"127.0.0.1:{_free_port()}", 1, 0, device="cuda", timeout_s=120)
+    backend = dist.get_backend()
+    try:
+        mesh1 = multihost.global_mesh()
+        t0 = time.perf_counter()
+        res_pg = sharded.optimize_sharded(p, params, mesh1, flags, config=cfg, **SHARD_CHUNKS)
+        torch.cuda.synchronize()
+        pg_wall = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    log(f"[sharded] process group ({backend}, world size 1): {res_pg.iterations} iterations, "
+        f"cost {float(res_pg.cost):.6e}, wall {pg_wall:.2f} s")
+
+    # Two ranks on the card (gloo with CUDA tensors), each loading only
+    # its time slice, in subprocesses with a time limit.
+    port = _free_port()
+    env = dict(os.environ)
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--rank-worker",
+                               str(r), "2", str(port)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True, env=env) for r in range(2)]
+    outs = []
+    t0 = time.perf_counter()
+    try:
+        for pr in procs:
+            outs.append(pr.communicate(timeout=RANK_TIMEOUT_S)[0])
+    except subprocess.TimeoutExpired:
+        raise SystemExit(f"a rank did not finish within {RANK_TIMEOUT_S} s")
+    finally:
+        for pr in procs:
+            if pr.poll() is None:
+                pr.kill()
+                pr.wait()
+    ranks = []
+    for r, (pr, out) in enumerate(zip(procs, outs)):
+        lines = [ln for ln in out.splitlines() if ln.startswith("RANK ")]
+        if pr.returncode != 0 or not lines:
+            raise SystemExit(f"rank {r} failed (exit {pr.returncode}):\n{out[-4000:]}")
+        ranks.append(json.loads(lines[-1][5:]))
+    log(f"[sharded] 2 ranks on one card over gloo: {ranks} ({time.perf_counter() - t0:.2f} s "
+        "with start-up)")
+
+    c_ref = float(ref.cost)
+    checks = {
+        f"{SHARDS} shards: H and g within 1e-4 of the single-device linearizer's (relative "
+        "to the largest entry), cost within 1e-5": err["H"] < 1e-4 and err["g"] < 1e-4
+        and err["cost"] < 1e-5,
+        "3 K1 launches per shard and linearization": all(
+            lin_counts.get(f, 0) == SHARDS for f in ("obs", "accel", "gyro")),
+        "world size 1 on NCCL": backend == "nccl",
+        "two ranks computed the same solution": ranks[0]["cost"] == ranks[1]["cost"]
+        and ranks[0]["iterations"] == ranks[1]["iterations"],
+        "each rank held only its time slice": all(r["obs_rows"] < r["obs_rows_full"]
+                                                  for r in ranks),
+    }
+    for name, (res, _) in list(results.items()) + [("process group", (res_pg, 0)),
+                                                  ("2 ranks", (None, 0))]:
+        c = ranks[0]["cost"] if res is None else float(res.cost)
+        it = ranks[0]["iterations"] if res is None else res.iterations
+        checks[f"{name}: cost within 1e-3 of the single-device solve, same iterations"] = (
+            math.isfinite(c) and abs(c - c_ref) <= 1e-3 * abs(c_ref) and it == ref.iterations)
+    for name in ("sharded", "schur"):
+        n_lin = results[name][0].linearizations
+        checks[f"{name}: 3 K1 launches per shard and linearization"] = all(
+            counts[name].get(f, 0) == SHARDS * n_lin for f in ("obs", "accel", "gyro"))
+    for k, ok in checks.items():
+        log(f"[sharded] check {k}: {'ok' if ok else 'FAILED'}")
+    if not all(checks.values()):
+        raise SystemExit("sharded / schur checks failed")
+    return counts
+
+
+def rank_worker(rank, world, port):
+    """One rank of the sharded phase's 2-rank run (chip_smoke.py
+    --rank-worker RANK WORLD PORT): joins a gloo group on the card, loads
+    only its time slice of the DS3 problem and runs the sharded LM."""
+    import torch
+    import torch.distributed as dist
+
+    from openimucameracalibrator_torch.core import spline_estimator as se
+    from openimucameracalibrator_torch.parallel import multihost, sharded
+    from openimucameracalibrator_torch.solver import lm
+
+    assert multihost.initialize(f"127.0.0.1:{port}", world, rank, backend="gloo",
+                                device="cuda", timeout_s=RANK_TIMEOUT_S)
+    p_full, params, _ = ds3_problem(DURATION, "cuda", seed=7, perturb=True)
+    t_lo = float(min(p_full.accel_t.min(), p_full.obs_t.min()))
+    t_hi = float(max(p_full.accel_t.max(), p_full.obs_t.max())) + 1e-6
+    lo, hi = multihost.host_time_range(t_lo, t_hi)
+    local = {}
+    for fam, tkey in (("accel", "accel_t"), ("gyro", "gyro_t"), ("obs", "obs_t")):
+        m = multihost.host_shard(getattr(p_full, tkey).cpu().numpy(), lo, hi)
+        for f in se.SplineProblem._fields:
+            v = getattr(p_full, f)
+            if f.startswith(fam) and isinstance(v, torch.Tensor):
+                local[f] = v.cpu().numpy()[m]
+    meta = {f: getattr(p_full, f) for f in
+            ("t0", "dt_so3", "dt_r3", "dt_bias", "n_so3", "n_r3", "n_bias", "w_accel",
+             "w_gyro", "cam_params", "model_name", "rolling_shutter")}
+    rows = multihost.agree_per_host_rows(local)
+    mesh = multihost.global_mesh()
+    p_loc = multihost.make_global_problem(local, meta, mesh, per_host_rows=rows)
+    obs_full = int(p_full.obs_valid.sum())
+    del p_full
+    flags = se.DEFAULT_FLAGS | {se.CAM_LINE_DELAY, se.TIME_OFFSET}
+    t0 = time.perf_counter()
+    res = sharded.optimize_sharded(p_loc, params, mesh, flags,
+                                   config=lm.LMConfig(max_iters=3, ftol=0.0), **SHARD_CHUNKS)
+    torch.cuda.synchronize()
+    print("RANK " + json.dumps(dict(
+        rank=rank, cost=float(res.cost), iterations=res.iterations,
+        wall_s=round(time.perf_counter() - t0, 3), obs_rows=int(p_loc.obs_valid.sum()),
+        obs_rows_full=obs_full,
+        device=str(mesh.device))), flush=True)
+    dist.destroy_process_group()
+    return 0
+
+
+def batch_cli_phase(torch, mods, tmp):
+    """The batch CLI on the card at a small depth (phase 14): two short
+    make_recording captures (tests/test_batch_cli.py's settings) rendered on
+    the card, their frames fed to the detectors as phase 10 feeds them,
+    intrinsics from the first recording's intrinsics video, then
+    ``batch_calibration --mode joint``, held to that test's bars. Returns
+    the K2 launches (block, frame) and the K1 launches by family."""
+    recorded, board_extractor, camera_calibrator, io, batch_cli, kernels, gram, lie = mods
+    frames_of, recs = {}, []
+    real_render = recorded.render_frames
+    for i, seed in enumerate(BATCH_CLI_SEEDS):
+        kept = []
+
+        def render_spy(*a, **kw):
+            frames = real_render(*a, **kw)
+            kept.append(frames)
+            return frames
+
+        recorded.render_frames = render_spy
+        try:
+            rec = recorded.make_recording(os.path.join(tmp, f"batch_r{i}"), seed=seed,
+                                          device="cuda", **BATCH_CLI)
+        finally:
+            recorded.render_frames = real_render
+        fc, fi = kept
+        frames_of[rec.cam_video] = (np.arange(len(fc)) / CAM_VIDEO_FPS, fc)
+        frames_of[rec.imu_cam_video] = (np.arange(len(fi)) / BATCH_CLI["cam_fps"], fi)
+        recs.append(rec)
+    opts = board_extractor.BoardExtractorOptions(
+        squares_x=BATCH_CLI["squares_x"], squares_y=BATCH_CLI["squares_y"],
+        square_length=BATCH_CLI["square_length"], marker_length=BATCH_CLI["marker_length"])
+    ds = board_extractor.extract_board(zip(*frames_of[recs[0].cam_video]), opts, device="cuda")
+    calib, _ = camera_calibrator.calibrate_camera(ds, "division_undistortion", device="cuda")
+    calib_path = os.path.join(tmp, "batch_cam_calib.json")
+    io.save_camera_calibration(calib, calib_path)
+    log(f"[batch cli] 2 recordings rendered; intrinsics from {len(frames_of[recs[0].cam_video][1])}"
+        f" frames: reprojection {calib.mean_reproj_error:.4f} px")
+
+    real_extract = board_extractor.extract_board_from_video
+
+    def from_frames(video, o, device=None):
+        return board_extractor.extract_board(zip(*frames_of[video]), o, device=device)
+
+    board_extractor.extract_board_from_video = from_frames
+    kernels.reset_counts()
+    out_path = os.path.join(tmp, "batch_rig.json")
+    try:
+        out, wall, k1 = _counted(gram, {}, "batch CLI", lambda: batch_cli.main(
+            sum([["--recording", r.imu_cam_video] for r in recs], []) + [
+                "--camera_calibration_json", calib_path, "--telemetry_format", "gopro",
+                "--num_squares_x", str(BATCH_CLI["squares_x"]),
+                "--num_squares_y", str(BATCH_CLI["squares_y"]),
+                "--checker_size_m", str(BATCH_CLI["square_length"]),
+                "--marker_size_m", str(BATCH_CLI["marker_length"]), "--global_shutter",
+                "--max_iters", "25", "--mode", "joint", "--output_json", out_path,
+                "--device", "cuda"]))
+    finally:
+        board_extractor.extract_board_from_video = real_extract
+    k2 = (kernels.corner_response_block.launches, kernels.corner_response_nms.launches)
+    q = np.asarray(out["q_i_c"])
+    ang = 2 * np.arccos(min(1.0, abs(float(np.dot(q, np.asarray(recs[0].q_i_c))))))
+    t_err = float(np.max(np.abs(np.asarray(out["t_i_c"]) - np.asarray(recs[0].t_i_c))))
+    log(f"[batch cli] joint CLI wall {wall:.2f} s: rotation error {np.rad2deg(ang):.4f} deg, "
+        f"t_i_c error {t_err * 1e3:.2f} mm, sequences "
+        f"{[(round(sq['mean_reproj_error_px'], 4), round(sq['time_offset_s'], 5)) for sq in out['sequences']]}; "
+        f"K2 launches (block, frame) {k2}, K1 launches {k1}")
+    checks = {
+        "two sequences, joint mode": out["n_sequences"] == 2 and out["mode"] == "joint",
+        "rotation within 1 deg": ang < np.deg2rad(1.0),
+        "t_i_c within 20 mm per axis": t_err < 0.02,
+        "mean reprojection error < 2 px per sequence": all(
+            sq["mean_reproj_error_px"] < 2.0 for sq in out["sequences"]),
+        "|time offset - truth| < 5 ms per sequence": all(
+            abs(sq["time_offset_s"] - recs[0].time_offset) < 5e-3 for sq in out["sequences"]),
+        "K2 ran on the card": sum(k2) > 0,
+        "K1 ran on the card": all(k1.get(f, 0) > 0 for f in ("obs", "accel", "gyro")),
+    }
+    for k, ok in checks.items():
+        log(f"[batch cli] check {k}: {'ok' if ok else 'FAILED'}")
+    if not all(checks.values()):
+        raise SystemExit("batch CLI checks failed")
+    return k2, k1
+
+
 def main():
     import torch
 
@@ -1379,17 +1870,20 @@ def main():
               file=sys.stderr)
         return 2
     sys.path.insert(0, here)
+    from openimucameracalibrator_torch.apps import batch_calibration as batch_cli
     from openimucameracalibrator_torch.apps import calibrate_camera as cal_cli
     from openimucameracalibrator_torch.apps import continuous_time_calibration as cli
     from openimucameracalibrator_torch.apps import misc_tools
     from openimucameracalibrator_torch.apps import run_calibration as run_cal
-    from openimucameracalibrator_torch.core import (board_extractor, gpmf, imu_cam_rotation,
+    from openimucameracalibrator_torch.core import (batch_estimator, board_extractor,
+                                                    camera_calibrator, gpmf, imu_cam_rotation,
                                                     imu_camera_calibrator, pose_estimator,
                                                     static_imu_calibrator, telemetry)
     from openimucameracalibrator_torch.core import spline_estimator as se
     from openimucameracalibrator_torch.detect import checkerboard, kernels, render, video
     from openimucameracalibrator_torch.models import cameras
     from openimucameracalibrator_torch.ops import lie
+    from openimucameracalibrator_torch.parallel import multihost, schur, sharded
     from openimucameracalibrator_torch.solver import banded, gram, lm
     from openimucameracalibrator_torch.utils import io, mp4_writer, precision, recorded, synthetic
 
@@ -1493,10 +1987,23 @@ def main():
 
     static_imu_phase(torch, (misc_tools, static_imu_calibrator, telemetry, io, synthetic), tmp)
 
+    batch_rows, batch_counts = batch_phase(torch, (se, batch_estimator, lm, gram, lie))
+    shard_counts = sharded_phase(torch, (se, sharded, schur, multihost, lm, gram))
+    k2_cli, k1_cli = batch_cli_phase(torch, (recorded, board_extractor, camera_calibrator, io,
+                                             batch_cli, kernels, gram, lie), tmp)
+    k2_row["launches_batch_cli"], block_row["launches_batch_cli"] = k2_cli[1], k2_cli[0]
+    for row in rows:
+        tag = row["tag"]
+        row["launches_batch"] = batch_counts["independent"].get(tag, 0)
+        row["launches_batch_joint"] = batch_counts["joint"].get(tag, 0)
+        row["launches_sharded"] = shard_counts["sharded"].get(tag, 0)
+        row["launches_schur"] = shard_counts["schur"].get(tag, 0)
+        row["launches_batch_cli"] = k1_cli.get(tag, 0)
+
     shutil.rmtree(tmp, ignore_errors=True)
     for row in rows:
         row.pop("tag")
-    rows += [k2_row, block_row]
+    rows += list(batch_rows.values()) + [k2_row, block_row]
     log(json.dumps({"kernels": rows}))
     log(f"[done] {time.perf_counter() - t_start:.1f} s on {name}")
     log(smi)
@@ -1506,4 +2013,7 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank-worker"]:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        sys.exit(rank_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     sys.exit(main())

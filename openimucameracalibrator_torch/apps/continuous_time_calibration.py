@@ -44,14 +44,34 @@ def build_parser(p: argparse.ArgumentParser | None = None):
     p.add_argument("--solver_checkpoint_dir", default="",
                    help="snapshot the solution after every LM stage and "
                         "resume from completed stages on rerun")
-    # Multi-host flags of the JAX CLI: not ported yet (torch.distributed).
+    # Multi-process launch (parallel/multihost.py): pass the coordinator to
+    # join a torch.distributed group; single-process runs leave these unset.
     p.add_argument("--coordinator_address", default="",
-                   help="multi-process runs are not ported yet")
+                   help="host:port of process 0 for torch.distributed")
     p.add_argument("--num_processes", type=int, default=0)
     p.add_argument("--process_id", type=int, default=-1)
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default cuda; 'cpu' runs in float64)")
     return p
+
+
+def maybe_init_distributed(args) -> bool:
+    """Join a multi-process group when asked (no-op on one process) and
+    print this process's rank and the world size."""
+    from openimucameracalibrator_torch.parallel import multihost
+
+    joined = multihost.initialize(
+        coordinator_address=getattr(args, "coordinator_address", "") or None,
+        num_processes=getattr(args, "num_processes", 0) or None,
+        process_id=(args.process_id if getattr(args, "process_id", -1) >= 0 else None),
+        device=args.device)
+    if joined:
+        import torch.distributed as dist
+
+        print(f"torch.distributed: process {multihost.process_index()}/"
+              f"{multihost.process_count()}, backend {dist.get_backend()}, device "
+              f"{multihost.global_mesh().device}")
+    return joined
 
 
 def _profile(trace_dir: str, device):
@@ -75,10 +95,7 @@ def _profile(trace_dir: str, device):
 def run(args) -> str:
     import numpy as np
 
-    if (args.coordinator_address or args.num_processes or args.process_id >= 0):
-        raise NotImplementedError(
-            "multi-process calibration (--coordinator_address/--num_processes/"
-            "--process_id) is not ported yet (ROADMAP.md queue 1, item 12)")
+    maybe_init_distributed(args)
 
     from openimucameracalibrator_torch.apps.estimate_imu_to_camera_rotation import \
         load_imu_camera_init

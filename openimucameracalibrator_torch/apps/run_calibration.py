@@ -36,8 +36,9 @@ and ``imu_cam_corners.uson`` (``utils/io.save_corners`` of what
 ``board_extractor.extract_board`` found on in-memory (time, gray) frames)
 runs without it. The OpenCV detection backend needs cv2 too.
 
-Not ported yet, raising ``NotImplementedError`` that names its ROADMAP.md
-queue 1 item: the multi-process flags (item 12).
+The multi-process flags (``--coordinator_address``, ``--num_processes``,
+``--process_id``) join a ``torch.distributed`` group and print the rank and
+world size, as the JAX CLI does; the run itself is the same.
 
     python -m openimucameracalibrator_torch.apps.run_calibration \\
         --path_calib_dataset data --telemetry_json data/telemetry.json \\
@@ -90,9 +91,9 @@ def build_parser():
     p.add_argument("--recompute_corners", action="store_true")
     p.add_argument("--imu_intrinsics_json", default="",
                    help="static multi-pose IMU intrinsics json (read_misc.cc:84-150)")
-    # Multi-host flags of the JAX CLI: not ported yet (torch.distributed).
+    # Multi-process launch (parallel/multihost.py).
     p.add_argument("--coordinator_address", default="",
-                   help="multi-process runs are not ported yet")
+                   help="host:port of process 0 for torch.distributed")
     p.add_argument("--num_processes", type=int, default=0)
     p.add_argument("--process_id", type=int, default=-1)
     p.add_argument("--device", default="cuda",
@@ -135,10 +136,10 @@ def _extract_corners(video, opts, ws_path, recompute, device):
 
 
 def run(args) -> dict:
-    if args.coordinator_address or args.num_processes or args.process_id >= 0:
-        raise NotImplementedError(
-            "multi-process calibration (--coordinator_address/--num_processes/"
-            "--process_id) is not ported yet (ROADMAP.md queue 1, item 12)")
+    from openimucameracalibrator_torch.apps.continuous_time_calibration import \
+        maybe_init_distributed
+
+    maybe_init_distributed(args)
     if args.detector_kernel != "auto":
         raise ValueError(
             f"--detector_kernel {args.detector_kernel}: the port has one corner-response "

@@ -21,10 +21,10 @@ parameters.
   line_delay * row. The knot-window index uses the detached capture time,
   so gathers stay fixed while the in-segment coordinate u keeps the
   line-delay gradient.
-
-Not ported yet (see ROADMAP.md): the banded solver, the knot-sharded and
-multi-sequence linearizer variants (``s_org``/``r_org``/problem
-overrides) and the sequential (scan) chunk mode.
+* The fast linearizer's variants serve the multi-sequence batch
+  (``core/batch_estimator.py``: N stacked problems, per-problem scalar
+  overrides) and the sharded solvers (``parallel/sharded.py``,
+  ``parallel/schur.py``: per-shard chunk bases, knot-window origins).
 """
 
 from __future__ import annotations
@@ -470,12 +470,16 @@ def _obs_fields(p: SplineProblem) -> dict:
     return d
 
 
-def make_solver_functions(p: SplineProblem, layout, reproj_chunk: int | None = None):
+def make_solver_functions(p: SplineProblem, layout, reproj_chunk: int | None = None,
+                          include_prior: bool = True):
     """(linearize_fn, cost_fn) by direct block scatter-add (the reference
     path the fast linearizer is held against).
 
     ``reproj_chunk``: if set, reprojection blocks are assembled over
     consecutive chunks of that many observations, bounding peak memory.
+
+    ``include_prior``: sharded callers pass False and add the board-point
+    prior once, after the reduction over shards.
     """
 
     def cost_fn(params):
@@ -484,7 +488,7 @@ def make_solver_functions(p: SplineProblem, layout, reproj_chunk: int | None = N
         rp, _, _ = _reproj_r_and_idx(params, p, layout, with_jac=False)
         c = 0.5 * torch.sum(ra * ra) + 0.5 * torch.sum(rg * rg)
         c = c + robust.huber_cost(rp.reshape(-1), HUBER_PX, group_size=2)
-        prior = _point_prior_eval(params, p, layout)
+        prior = _point_prior_eval(params, p, layout) if include_prior else None
         if prior is not None:
             c = c + 0.5 * torch.sum(prior[0] ** 2)
         return c
@@ -499,7 +503,7 @@ def make_solver_functions(p: SplineProblem, layout, reproj_chunk: int | None = N
         rg, Jg, ig = _gyro_r_and_idx(params, p, layout, with_jac=True)
         _scatter(H, g, rg, Jg, ig)
         cost = 0.5 * torch.sum(ra * ra) + 0.5 * torch.sum(rg * rg)
-        prior = _point_prior_eval(params, p, layout)
+        prior = _point_prior_eval(params, p, layout) if include_prior else None
         if prior is not None:
             rq, Wq, iq = prior
             _scatter(H, g, rq, Wq, iq)
@@ -616,22 +620,38 @@ def _region_idx(starts_list) -> np.ndarray:
     return np.concatenate([np.broadcast_to(pt, (K, pt.shape[1])) for pt in parts], axis=1)
 
 
+# SplineProblem scalar fields a linearizer or cost accepts per problem
+# through its ``bases`` dict (the multi-sequence batch: per-sequence time
+# origins, SEW weights, bias-knot spacing and valid-time bound; dt_bias only
+# scales the bias-spline coordinate, never a derivative, since bias splines
+# are evaluated at order 0).
+PROBLEM_OVERRIDE_KEYS = ("t0", "w_accel", "w_gyro", "dt_bias", "t_hi")
+
+# Chunk-base keys of ``bases`` (plan_bases) and the measurement fields of the
+# two IMU families.
+_BASE_KEYS = ("obs_s", "obs_r", "acc_s", "acc_r", "gyr_s")
+_ACC_KEYS = ("accel_t", "accel_meas", "accel_valid")
+_GYR_KEYS = ("gyro_t", "gyro_meas", "gyro_valid")
+
+
 class _Family(NamedTuple):
-    """Static assembly data of one measurement family."""
+    """Static assembly data of one measurement family for one set of bases
+    and N stacked problems."""
 
     segments: tuple  # kernel-form segments (solver/gram.py)
     L: int
-    g_idx: torch.Tensor  # (K*L,) global row of each chunk-local coordinate
-    h_idx: torch.Tensor  # (K*L*L,) flat global (row, col) of each local entry
+    g_idx: torch.Tensor  # (N, K, L) flat row of (N, D) g per chunk-local coordinate
+    h_idx: torch.Tensor  # (N, K, L*L) flat entry of (N, D, D) H per local entry
 
 
-def _family(segments, starts_list, D: int, device) -> _Family:
+def _family(segments, starts_list, D: int, n_seq: int, device) -> _Family:
     idx = _region_idx(starts_list)
     K, L = idx.shape
-    flat = idx[:, :, None] * D + idx[:, None, :]
-    return _Family(tuple(segments), int(L),
-                   torch.as_tensor(idx.reshape(-1), device=device),
-                   torch.as_tensor(flat.reshape(-1), device=device))
+    seq = np.arange(n_seq, dtype=np.int64)[:, None, None]
+    g_idx = idx[None] + seq * D
+    h_idx = (idx[:, :, None] * D + idx[:, None, :]).reshape(1, K, L * L) + seq * (D * D)
+    return _Family(tuple(segments), int(L), torch.as_tensor(g_idx, device=device),
+                   torch.as_tensor(h_idx, device=device))
 
 
 def _kernel_segments(runs_and_fixed):
@@ -672,15 +692,56 @@ def gram_layouts(p: SplineProblem, plans) -> dict:
             "gyro": (3, 36, *_kernel_segments(gyr))}
 
 
-def make_fast_linearizer(p: SplineProblem, layout, plans):
-    """Chunk-local linearizer: ``lin(params, arrs) -> (H, g, cost)``.
+def _gram_cast(J, r, idx, segments, L, gram_dtype):
+    """The plain densify + Gram with H's operands cast to ``gram_dtype`` and
+    accumulated in the input dtype; g stays in full precision."""
+    D, rf = gram._densify_segments(r[:, :, None], J[:, :, None, :],
+                                   gram._per_row_segments(segments, idx), L)
+    Dc = D.to(gram_dtype).to(D.dtype)
+    return (torch.einsum("krl,krm->klm", Dc, Dc), torch.einsum("krl,kr->kl", D, rf))
+
+
+def make_fast_linearizer(p: SplineProblem, layout, plans, include_prior: bool = True,
+                         sequential: bool = False, gram_dtype=None, *, n_seq: int | None = None):
+    """Chunk-local linearizer: ``lin(params, arrs, bases=None) -> (H, g, cost)``.
 
     ``plans`` and ``arrs`` (the chunked-tensor dict) come from
-    :func:`plan_fast_assembly`. Each family's chunks are evaluated
-    together (one batch over all chunks), densified and contracted by
-    ``gram.fused_gram`` with the layouts of :func:`gram_layouts` (three
-    launches per linearize on the card: reprojection, accelerometer,
-    gyroscope), and added into H by one ``index_add_`` each.
+    :func:`plan_fast_assembly`. ``bases`` holds the per-chunk first-knot
+    indices (host arrays; :func:`plan_bases` of ``plans`` by default) and
+    may also carry
+
+    * ``s_org`` / ``r_org`` — the knot-window origin of the target H: 0 for
+      the global layout, the shard's first knot for the knot-sharded local
+      layouts of ``parallel/schur.py`` (``layout`` is then the local one);
+    * the per-problem scalars of :data:`PROBLEM_OVERRIDE_KEYS`.
+
+    Each family's chunks are evaluated together (one batch over all
+    chunks), densified and contracted by ``gram.fused_gram`` with the
+    layouts of :func:`gram_layouts` (three launches per linearize on the
+    card: reprojection, accelerometer, gyroscope), and added into H by one
+    ``index_add_`` each, over a flat index built once on the host per
+    distinct set of bases and kept.
+
+    ``sequential``: evaluate and contract one chunk at a time, which bounds
+    the peak memory to one chunk's buffers (the JAX package's ``lax.scan``
+    mode); on the card that is one kernel launch per chunk and family.
+
+    ``gram_dtype`` (e.g. ``torch.bfloat16``) casts the Gram operands of H
+    on the plain path (CPU tensors) and accumulates in the problem dtype,
+    as the JAX package's XLA path does; g and the cost stay in full
+    precision. On the card the kernel always computes in float32, as the
+    JAX package's ``gram_kernel="pallas"`` path does.
+
+    ``include_prior``: sharded callers pass False and add the board-point
+    prior once, after the reduction over shards.
+
+    ``n_seq=N``: the linearizer of N problems stacked on a leading axis
+    (params and arrs leaves (N, ...), the overrides in ``bases`` (N,)
+    tensors; the chunk bases are shared, see ``core/batch_estimator.py``).
+    It returns ``H (N, D, D)``, ``g (N, D)``, ``cost (N,)``: residuals and
+    Jacobians of all N come from one ``torch.func.vmap`` over the sequence
+    axis, the N*K chunks of a family go through one kernel launch, and one
+    ``index_add_`` per family places every block at its sequence's offset.
 
     On the card ``index_add_`` sums overlapping chunk blocks with atomics,
     in an order that varies from run to run: H and g then differ between
@@ -688,100 +749,151 @@ def make_fast_linearizer(p: SplineProblem, layout, plans):
     the entry), which is far below what the damped solve resolves.
     """
     obs_plan, acc_plan, gyr_plan = plans
-    bases = plan_bases(plans)
     nb3 = 3 * p.n_bias
     np3 = 3 * p.n_points  # points are chunk-global: every chunk sees all P
     off = layout.offsets
     D = layout.tangent_dim
     dev = p.obs_uv.device
+    N = 1 if n_seq is None else int(n_seq)
+    glayouts = gram_layouts(p, plans)
+    w_of = {"obs_s": obs_plan.w_s, "obs_r": obs_plan.w_r, "acc_s": acc_plan.w_s,
+            "acc_r": acc_plan.w_r, "gyr_s": gyr_plan.w_s}
+    tables = {}
 
-    # Global start and width of each chunk-local region, in segment order.
-    starts = {"obs": [(3 * bases["obs_s"], 3 * obs_plan.w_s),
-                      (off["t_r3"] + 3 * bases["obs_r"], 3 * obs_plan.w_r),
-                      (off["q_i_c"], 8)] + ([(off["points"], np3)] if p.n_points > 0 else []),
-              # bias_a | gravity | accl_intr: contiguous by layout contract.
-              "accel": [(3 * bases["acc_s"], 3 * acc_plan.w_s),
-                        (off["t_r3"] + 3 * bases["acc_r"], 3 * acc_plan.w_r),
-                        (off["bias_a"], nb3 + 9)],
-              # bias_g | gyro_intr: contiguous by layout contract.
-              "gyro": [(3 * bases["gyr_s"], 3 * gyr_plan.w_s), (off["bias_g"], nb3 + 9)]}
-    fams = {}
-    for name, (_, _, ksegs, L) in gram_layouts(p, plans).items():
-        fams[name] = _family(ksegs, starts[name], D, dev)
-        assert fams[name].L == L, (name, fams[name].L, L)
-
-    # Per-chunk first-knot indices, uploaded once.
-    dbases = {k: torch.as_tensor(np.asarray(v), device=dev).reshape(-1, 1)
-              for k, v in bases.items()}
-
-    def _local(i, base, w, K):
-        """Chunk-local block index of each measurement's first knot."""
-        return torch.clamp(i.reshape(K, -1) - base, 0, w - ORDER)
-
-    def _gram(fam: _Family, name, r, J, run_idx, K, H, g):
-        """Kernel-form inputs from per-measurement (r, J, block indices),
-        then the fused densify + Gram and the accumulation into (H, g)."""
-        M, rd, F = J.shape
-        R = (M // K) * rd
-        Jk = J.reshape(K, R, F).contiguous()
-        rk = r.reshape(K, R).contiguous()
-        idx = torch.stack([i.reshape(K, -1).repeat_interleave(rd, dim=1) for i in run_idx])
-        if Jk.device.type == "cuda":
-            Jk, rk, idx = Jk.float(), rk.float(), idx.to(torch.int32)
-        Hl, gl = gram.fused_gram(Jk, rk, idx.contiguous(), fam.segments, fam.L, tag=name)
-        H.view(-1).index_add_(0, fam.h_idx, Hl.reshape(-1).to(H.dtype))
-        g.index_add_(0, fam.g_idx, gl.reshape(-1).to(g.dtype))
+    def _tables(bases):
+        """(families, per-chunk base tensors) for these bases, built on the
+        host once and kept."""
+        b = {k: np.asarray(bases[k], np.int64).reshape(-1) for k in _BASE_KEYS}
+        s_org, r_org = int(bases.get("s_org", 0)), int(bases.get("r_org", 0))
+        key = tuple(b[k].tobytes() for k in _BASE_KEYS) + (s_org, r_org)
+        if key in tables:
+            return tables[key]
+        # Global start and width of each chunk-local region, in segment order.
+        starts = {"obs": [(3 * (b["obs_s"] - s_org), 3 * obs_plan.w_s),
+                          (off["t_r3"] + 3 * (b["obs_r"] - r_org), 3 * obs_plan.w_r),
+                          (off["q_i_c"], 8)] + ([(off["points"], np3)] if p.n_points > 0
+                                                else []),
+                  # bias_a | gravity | accl_intr: contiguous by layout contract.
+                  "accel": [(3 * (b["acc_s"] - s_org), 3 * acc_plan.w_s),
+                            (off["t_r3"] + 3 * (b["acc_r"] - r_org), 3 * acc_plan.w_r),
+                            (off["bias_a"], nb3 + 9)],
+                  # bias_g | gyro_intr: contiguous by layout contract.
+                  "gyro": [(3 * (b["gyr_s"] - s_org), 3 * gyr_plan.w_s),
+                           (off["bias_g"], nb3 + 9)]}
+        fams = {}
+        for name, (_, _, ksegs, L) in glayouts.items():
+            fams[name] = _family(ksegs, starts[name], D, N, dev)
+            assert fams[name].L == L, (name, fams[name].L, L)
+        dbases = {k: torch.as_tensor(v, device=dev).reshape(-1, 1) for k, v in b.items()}
+        if sequential:  # one contiguous index per chunk
+            fams = {name: fam._replace(
+                g_idx=[fam.g_idx[:, k].reshape(-1) for k in range(fam.g_idx.shape[1])],
+                h_idx=[fam.h_idx[:, k].reshape(-1) for k in range(fam.h_idx.shape[1])])
+                for name, fam in fams.items()}
+        tables[key] = (fams, dbases)
+        return tables[key]
 
     def _flat(arrs, keys):
-        """(K, chunk, ...) chunked fields -> (K*chunk, ...) problem fields."""
+        """(Kc, chunk, ...) chunked fields -> (Kc*chunk, ...) problem fields."""
         return {k: arrs[k].reshape((-1,) + tuple(arrs[k].shape[2:])) for k in keys}
 
-    def linearize(params, arrs):
-        dtype = p.obs_uv.dtype
-        H = torch.zeros((D, D), dtype=dtype, device=dev)
-        g = torch.zeros((D,), dtype=dtype, device=dev)
+    obs_keys = tuple(_obs_fields(p).keys())
 
-        K = acc_plan.n_chunks
-        pa = p._replace(**_flat(arrs, ("accel_t", "accel_meas", "accel_valid")))
-        r, J, (i_s, i_r, i_b) = _accel_eval(params, pa, with_jac=True)
-        _gram(fams["accel"], "accel", r, J,
-              [_local(i_s, dbases["acc_s"], acc_plan.w_s, K),
-               _local(i_r, dbases["acc_r"], acc_plan.w_r, K), i_b.reshape(K, -1)], K, H, g)
-        cost = 0.5 * torch.sum(r * r)
-
-        K = gyr_plan.n_chunks
-        pg = p._replace(**_flat(arrs, ("gyro_t", "gyro_meas", "gyro_valid")))
-        r, J, (i_s, i_b) = _gyro_eval(params, pg, with_jac=True)
-        _gram(fams["gyro"], "gyro", r, J,
-              [_local(i_s, dbases["gyr_s"], gyr_plan.w_s, K), i_b.reshape(K, -1)], K, H, g)
-        cost = cost + 0.5 * torch.sum(r * r)
-
-        K = obs_plan.n_chunks
-        po = p._replace(**_flat(arrs, tuple(_obs_fields(p).keys())))
-        r, J, (i_s, i_r) = _reproj_eval(params, po, with_jac=True)
-        cost = cost + robust.huber_cost(r.reshape(-1), HUBER_PX, group_size=2)
+    def _eval(name, params, arrs, pov):
+        """One problem's (r, J, knot indices, cost) of family ``name`` over
+        the chunks in ``arrs``; reprojection rows carry their Huber weight."""
+        if name == "accel":
+            r, J, idx = _accel_eval(params, p._replace(**_flat(arrs, _ACC_KEYS), **pov), True)
+            return r, J, idx, 0.5 * torch.sum(r * r)
+        if name == "gyro":
+            r, J, idx = _gyro_eval(params, p._replace(**_flat(arrs, _GYR_KEYS), **pov), True)
+            return r, J, idx, 0.5 * torch.sum(r * r)
+        po = p._replace(**_flat(arrs, obs_keys), **pov)
+        r, J, idx = _reproj_eval(params, po, with_jac=True)
+        c = robust.huber_cost(r.reshape(-1), HUBER_PX, group_size=2)
         hw = robust.huber_sqrt_weights(r.reshape(-1), HUBER_PX, group_size=2)
         hw = hw.reshape(r.shape)[:, 0]
-        r = r * hw[:, None]
-        J = J * hw[:, None, None]
-        runs = [_local(i_s, dbases["obs_s"], obs_plan.w_s, K),
-                _local(i_r, dbases["obs_r"], obs_plan.w_r, K)]
         if p.n_points > 0:
-            runs.append(po.obs_pt_id.reshape(K, -1))
-        _gram(fams["obs"], "obs", r, J, runs, K, H, g)
+            idx = idx + (po.obs_pt_id,)
+        return r * hw[:, None], J * hw[:, None, None], idx, c
 
-        prior = _point_prior_eval(params, p, layout)
+    # Per family: its field keys, and per run segment the chunk-base key
+    # and window width that make the block index chunk-local (None: the
+    # index is already the region's own, as for biases and points).
+    fam_spec = {"accel": (_ACC_KEYS, ("acc_s", "acc_r", None)),
+                "gyro": (_GYR_KEYS, ("gyr_s", None)),
+                "obs": (obs_keys, ("obs_s", "obs_r", None))}
+
+    def _eval_all(name, params, sub, pov):
+        """_eval for every problem: outputs with a leading problem axis."""
+        if n_seq:
+            return vmap(lambda prm, ar, pv: _eval(name, prm, ar, pv))(params, sub, pov)
+        r, J, idx, c = _eval(name, params, sub, pov)
+        return r[None], J[None], tuple(i[None] for i in idx), c[None]
+
+    def _family_step(name, fam, params, arrs, pov, dbases, chunks, h_idx, g_idx, H, g):
+        """Evaluate family ``name`` on the chunks ``chunks`` (a slice) of
+        every problem, contract all of them in one kernel launch and add
+        them into (H, g); returns the per-problem cost (N,)."""
+        keys, run_bases = fam_spec[name]
+        sub = {k: arrs[k][:, chunks] if n_seq else arrs[k][chunks] for k in keys}
+        Kc = sub[keys[0]].shape[1 if n_seq else 0]
+        r, J, idx, cost = _eval_all(name, params, sub, pov)
+        Nn, M, rd, F = J.shape
+        C, R = M // Kc, (M // Kc) * rd
+        runs = []
+        for i, bk in zip(idx, run_bases):
+            if bk is not None:  # chunk-local block index of each measurement's first knot
+                i = torch.clamp(i.reshape(Nn, Kc, C) - dbases[bk][chunks], 0, w_of[bk] - ORDER)
+            runs.append(i.reshape(Nn * Kc, C).repeat_interleave(rd, dim=1))
+        Jk, rk, ridx = J.reshape(Nn * Kc, R, F), r.reshape(Nn * Kc, R), torch.stack(runs)
+        if Jk.device.type == "cuda":
+            Jk, rk, ridx = Jk.float(), rk.float(), ridx.to(torch.int32)
+        if gram_dtype is not None and Jk.device.type == "cpu":
+            Hl, gl = _gram_cast(Jk, rk, ridx, fam.segments, fam.L, gram_dtype)
+        else:
+            Hl, gl = gram.fused_gram(Jk.contiguous(), rk.contiguous(), ridx.contiguous(),
+                                     fam.segments, fam.L, tag=name)
+        H.view(-1).index_add_(0, h_idx, Hl.reshape(-1).to(H.dtype))
+        g.view(-1).index_add_(0, g_idx, gl.reshape(-1).to(g.dtype))
+        return cost
+
+    n_chunks = {"accel": acc_plan.n_chunks, "gyro": gyr_plan.n_chunks,
+                "obs": obs_plan.n_chunks}
+
+    def linearize(params, arrs, bases=None):
+        fams, dbases = _tables(plan_bases(plans) if bases is None else bases)
+        pov = {k: bases[k] for k in PROBLEM_OVERRIDE_KEYS if bases is not None and k in bases}
+        dtype = p.obs_uv.dtype
+        H = torch.zeros((N, D, D), dtype=dtype, device=dev)
+        g = torch.zeros((N, D), dtype=dtype, device=dev)
+        cost = torch.zeros((N,), dtype=dtype, device=dev)
+        for name in ("accel", "gyro", "obs"):
+            fam = fams[name]
+            if sequential:
+                for k in range(n_chunks[name]):
+                    cost = cost + _family_step(name, fam, params, arrs, pov, dbases,
+                                               slice(k, k + 1), fam.h_idx[k], fam.g_idx[k],
+                                               H, g)
+            else:
+                cost = cost + _family_step(name, fam, params, arrs, pov, dbases, slice(None),
+                                           fam.h_idx.reshape(-1), fam.g_idx.reshape(-1), H, g)
+        prior = _point_prior_eval(params, p, layout) if include_prior else None
         if prior is not None:
+            if n_seq:
+                raise ValueError("board points are not supported for stacked problems")
             rq, Wq, iq = prior
-            _scatter(H, g, rq, Wq, iq)
+            _scatter(H[0], g[0], rq, Wq, iq)
             cost = cost + 0.5 * torch.sum(rq * rq)
-        return H, g, cost
+        if n_seq:
+            return H, g, cost
+        return H[0], g[0], cost[0]
 
     return linearize
 
 
 def make_solver_functions_fast(p: SplineProblem, layout, obs_chunk: int = 4096,
-                               imu_chunk: int = 256):
+                               imu_chunk: int = 256, gram_dtype=None):
     """(linearize_fn, cost_fn) using chunk-local dense assembly (see above).
 
     Produces the same (H, g, cost) as :func:`make_solver_functions`. The
@@ -789,10 +901,11 @@ def make_solver_functions_fast(p: SplineProblem, layout, obs_chunk: int = 4096,
     here until an H100 sweep sets them.
     """
     plans, arrs = plan_fast_assembly(p, obs_chunk, imu_chunk)
-    lin = make_fast_linearizer(p, layout, plans)
+    lin = make_fast_linearizer(p, layout, plans, gram_dtype=gram_dtype)
+    bases = plan_bases(plans)
 
     def linearize_fn(params):
-        return lin(params, arrs)
+        return lin(params, arrs, bases)
 
     def cost_fn(params):
         ra, _, _ = _accel_eval(params, p, with_jac=False)

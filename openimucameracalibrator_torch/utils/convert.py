@@ -1,9 +1,12 @@
 """Carry parameters and problems across from the JAX package as numpy.
 
-The JAX package's spline parameter dict, ``SplineProblem`` fields and the
-camera calibrator's parameter dict, given as numpy arrays (``{k: np.asarray(v)}``), become the port's tensors
-and back, so that both packages compute from the same state. This module
-imports nothing of the JAX package: the caller converts to numpy.
+The JAX package's spline parameter dict, ``SplineProblem`` fields, the
+camera calibrator's parameter dict, lists of problems and parameter dicts
+(one per sequence of a multi-sequence batch) and a stacked
+``SequenceBatch``, given as numpy arrays (``{k: np.asarray(v)}``), become
+the port's tensors and back, so that both packages compute from the same
+state. This module imports nothing of the JAX package: the caller
+converts to numpy.
 """
 
 from __future__ import annotations
@@ -75,3 +78,48 @@ def ba_params_from_numpy(d: dict, device=None, dtype=None) -> dict:
 def ba_params_to_numpy(params: dict) -> dict:
     """Camera-calibrator parameter dict of tensors -> float64 numpy arrays."""
     return params_to_numpy({k: params[k] for k in BA_PARAM_KEYS})
+
+
+def problems_from_numpy(fields_list, device=None, dtype=None) -> list:
+    """A list of ``SplineProblem`` field dicts -> a list of the port's
+    problems (one per sequence of a multi-sequence batch)."""
+    return [problem_from_numpy(f, device=device, dtype=dtype) for f in fields_list]
+
+
+def params_list_from_numpy(dicts, device=None, dtype=None) -> list:
+    """A list of spline parameter dicts of numpy arrays -> dicts of tensors."""
+    return [params_from_numpy(d, device=device, dtype=dtype) for d in dicts]
+
+
+def sequence_batch_from_numpy(fields: dict, device=None, dtype=None):
+    """A stacked multi-sequence batch (the JAX package's ``SequenceBatch``
+    fields as numpy: ``p_ref`` a problem-field dict, ``plans`` three
+    ``(n_chunks, chunk, w_s, w_r, s_base, r_base)`` tuples, ``arrs`` and
+    ``bases`` dicts of arrays, ``pad_masks``, ``knot_counts``, ``n_seq``)
+    -> the port's ``batch_estimator.SequenceBatch``."""
+    from openimucameracalibrator_torch.core import batch_estimator as be
+
+    device = precision.resolve_device(device)
+    dtype = precision.resolve(dtype, device)
+    p_ref = problem_from_numpy(fields["p_ref"], device=device, dtype=dtype)
+    plans = tuple(se.ChunkPlan(int(k), int(c), int(ws), int(wr),
+                               None if sb is None else np.asarray(sb, np.int64),
+                               None if rb is None else np.asarray(rb, np.int64))
+                  for k, c, ws, wr, sb, rb in fields["plans"])
+
+    def tensor(a):
+        a = np.array(a)
+        if a.dtype == bool:
+            return torch.as_tensor(a, device=device)
+        if np.issubdtype(a.dtype, np.integer):
+            return torch.as_tensor(a.astype(np.int64), device=device)
+        return torch.as_tensor(a, dtype=dtype, device=device)
+
+    arrs = {k: tensor(v) for k, v in fields["arrs"].items()}
+    bases = {k: (np.asarray(v, np.int64) if k not in se.PROBLEM_OVERRIDE_KEYS else tensor(v))
+             for k, v in fields["bases"].items()}
+    return be.SequenceBatch(p_ref=p_ref, plans=plans, arrs=arrs, bases=bases,
+                            pad_masks=np.asarray(fields["pad_masks"], np.float64),
+                            knot_counts=tuple(tuple(int(x) for x in kc)
+                                              for kc in fields["knot_counts"]),
+                            n_seq=int(fields["n_seq"]))

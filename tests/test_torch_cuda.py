@@ -292,3 +292,105 @@ def test_camera_batch_on_the_card_matches_the_cpu(cuda_device):
         else:
             np.testing.assert_allclose(cg.params, cw.params, rtol=1e-4, atol=0)
         assert cg.mean_reproj_error == pytest.approx(cw.mean_reproj_error, rel=1e-3)
+
+
+def _card_sequences(device, durations=(3.0, 4.5), seeds=(3, 4)):
+    """Pinhole recordings of tests/test_batch_estimator.py's settings on the
+    card: [(problem, params0)] in float32."""
+    from openimucameracalibrator_torch.core import spline_estimator as se
+    from openimucameracalibrator_torch.utils.types import PoseDataset, SplineWeightingData
+
+    cam = [437.0, 437.5, 481.0, 271.5]
+    out = []
+    for duration, seed in zip(durations, seeds):
+        sc = synthetic.make_imu_camera_scene(cameras.get_model("pinhole"), cam,
+                                             duration=duration, cam_fps=20.0, imu_rate=100.0,
+                                             noise_px=0.15, seed=seed, device=device)
+        ds = CornerDataset(sc.frame_times, sc.observations, sc.obs_valid, sc.board.points,
+                           sc.image_size, 20.0)
+        imu = ImuData(sc.imu_times, sc.accel, sc.gyro)
+        p = se.build_problem(ds, CameraCalibration("pinhole", np.asarray(cam), sc.image_size,
+                                                   0.0), imu,
+                             SplineWeightingData(dt_so3=0.1, dt_r3=0.1, std_so3=0.002,
+                                                 std_r3=0.02, cam_fps=20.0),
+                             -0.05, rolling_shutter=False, device=device)
+        poses = PoseDataset(sc.frame_times, sc.q_w_c, sc.t_w_c,
+                            np.ones(len(sc.frame_times), bool), sc.board.points)
+        out.append((p, se.init_spline_params(poses, np.asarray(sc.q_i_c) + 0.005,
+                                             np.asarray(sc.t_i_c) + 0.004, p, imu,
+                                             pose_time_offset=-0.05, device=device)))
+    return out
+
+
+@pytest.mark.cuda
+def test_cuda_batched_linearizer_folds_sequences(cuda_device):
+    """One batched linearization of N=2 sequences makes one K1 launch per
+    family over the N*K folded chunks; each sequence's chunks of that
+    launch equal the plain version on the same inputs (8 sqrt(R) eps of
+    the sequence's largest entry), and each sequence's (H, g) equal its
+    own single-sequence linearization (1e-5 of the largest entry)."""
+    from openimucameracalibrator_torch.core import batch_estimator as be
+    from openimucameracalibrator_torch.core import spline_estimator as se
+
+    seqs = _card_sequences(cuda_device)
+    batch = be.build_sequence_batch([p for p, _ in seqs], obs_chunk=512, imu_chunk=128)
+    layout = se.build_layout(batch.p_ref)
+    params_b = be.stack_params(batch, [prm for _, prm in seqs])
+    calls, real = [], gram.fused_gram
+
+    def spy(J, r, idx, segs, L, tag=None):
+        gram.fused_gram = real
+        try:
+            H, g = real(J, r, idx, segs, L, tag=tag)
+        finally:
+            gram.fused_gram = spy
+        calls.append((tag, J, r, idx, segs, L, H, g))
+        return H, g
+
+    gram.fused_gram = spy
+    try:
+        H_b, g_b, _ = be.make_batch_linearizer(batch, layout)(params_b)
+    finally:
+        gram.fused_gram = real
+    k_of = {"obs": batch.plans[0].n_chunks, "accel": batch.plans[1].n_chunks,
+            "gyro": batch.plans[2].n_chunks}
+    assert sorted(c[0] for c in calls) == ["accel", "gyro", "obs"]
+    for tag, J, r, idx, segs, L, H, g in calls:
+        K = k_of[tag]
+        assert J.shape[0] == batch.n_seq * K
+        tol = 8 * np.sqrt(J.shape[1]) * np.finfo(np.float32).eps
+        for n in range(batch.n_seq):
+            sl = slice(n * K, (n + 1) * K)
+            Hp, gp = gram.fused_gram_plain(J[sl], r[sl], idx[:, sl].contiguous(), segs, L)
+            assert (H[sl] - Hp).abs().max().item() <= tol * Hp.abs().max().item()
+            assert (g[sl] - gp).abs().max().item() <= tol * gp.abs().max().item()
+    for n, (p, prm) in enumerate(seqs):
+        H, g, _ = se.make_solver_functions_fast(p, se.build_layout(p), obs_chunk=512,
+                                                imu_chunk=128)[0](prm)
+        own = torch.as_tensor(batch.pad_masks[n] > 0, device=cuda_device)
+        Hn, gn = H_b[n][own][:, own], g_b[n][own]
+        assert (Hn - H).abs().max().item() <= 1e-5 * H.abs().max().item()
+        assert (gn - g).abs().max().item() <= 1e-5 * g.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_cuda_sharded_matches_single_device(cuda_device):
+    """4 shards in one process on the card: the summed (H, g, cost) equal the
+    single-device linearizer's (1e-5 of the largest entry), with one K1
+    launch per family and shard."""
+    from openimucameracalibrator_torch.core import spline_estimator as se
+    from openimucameracalibrator_torch.parallel import sharded
+
+    (p, prm), = _card_sequences(cuda_device, durations=(6.0,), seeds=(5,))
+    layout = se.build_layout(p)
+    H0, g0, c0 = se.make_solver_functions_fast(p, layout)[0](prm)
+    lin, cost, _ = sharded.make_sharded_fast_solver_functions(
+        p, sharded.make_mesh(4, device=cuda_device), obs_chunk=1024, imu_chunk=256)
+    gram.reset_counts()
+    H1, g1, c1 = lin(prm)
+    torch.cuda.synchronize()
+    assert gram.fused_gram.launches_by_tag == {"obs": 4, "accel": 4, "gyro": 4}
+    assert (H1 - H0).abs().max().item() <= 1e-5 * H0.abs().max().item()
+    assert (g1 - g0).abs().max().item() <= 1e-5 * g0.abs().max().item()
+    assert float(c1) == pytest.approx(float(c0), rel=1e-5)
+    assert float(cost(prm)) == pytest.approx(float(c0), rel=1e-5)

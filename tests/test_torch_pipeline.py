@@ -231,7 +231,10 @@ def test_run_calibration_hands_stage_8_the_library_chain(workspace, cli_run):
 
 
 @pytest.mark.parametrize("extra, error, match", [
-    (["--num_processes", "2"], NotImplementedError, "ROADMAP"),
+    # the multi-process flags are ported (tests/test_torch_multihost.py): a
+    # rank outside the world is refused before any connection is tried
+    (["--coordinator_address", "127.0.0.1:1", "--num_processes", "2", "--process_id", "2"],
+     ValueError, "process_id"),
     (["--detector_kernel", "pallas"], ValueError, "only 'auto'"),
     # GoPro MP4 telemetry is ported (tests/test_torch_gpmf.py,
     # test_torch_recorded.py): a missing MP4 is reported by name
@@ -244,7 +247,7 @@ def test_run_calibration_hands_stage_8_the_library_chain(workspace, cli_run):
 ], ids=["multi-process", "detector-kernel", "gopro-mp4", "charuco", "opencv"])
 def test_run_calibration_rejects_what_is_not_ported(workspace, tmp_path, monkeypatch, extra,
                                                     error, match):
-    """What the port does not do raises, naming its ROADMAP.md item; what
+    """What the port refuses raises and says why; what
     needs cv2 says so where cv2 is not installed (simulated here); a GoPro
     MP4 that is not there is named."""
     _, ws, tel = workspace

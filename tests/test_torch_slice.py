@@ -155,11 +155,14 @@ def test_entry_points_default_to_cuda(tmp_path):
                     "--input_pose_dataset", "x", "--telemetry_json", "x",
                     "--imu_rotation_init", "x", "--spline_weighting_json", "x",
                     "--output_path", str(tmp_path / "r.json")])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # The multi-process flags are ported: a rank outside the world is refused
+    # before any connection is tried.
+    with pytest.raises(ValueError, match="process_id"):
         t_cli.main(["--input_corners", "x", "--camera_calibration_json", "x",
                     "--input_pose_dataset", "x", "--telemetry_json", "x",
                     "--imu_rotation_init", "x", "--spline_weighting_json", "x",
-                    "--output_path", "x", "--num_processes", "2", "--device", "cpu"])
+                    "--output_path", "x", "--coordinator_address", "127.0.0.1:1",
+                    "--num_processes", "2", "--process_id", "2", "--device", "cpu"])
 
     # The intrinsics slice: extract_board, calibrate_camera, both CLIs,
     # render_frames, make_intrinsics_scene and detect_checkerboard.
