@@ -6,10 +6,11 @@
 Phases (every failure exits non-zero; nothing is caught and carried on):
 
 1. device    — the card's name, and its name and power limit per nvidia-smi.
-2. build     — build both CUDA kernels at once, one nvcc each: the fused
-               densify + Gram (csrc/gram.cu, K1) and the corner response +
-               NMS with its block mode (csrc/corner_nms.cu, K2); beside
-               them the host GPMF reader (csrc/gpmf_reader.cc, g++).
+2. build     — build the three CUDA kernels at once, one nvcc each: the
+               fused densify + Gram (csrc/gram.cu, K1), the corner response
+               + NMS with its block mode (csrc/corner_nms.cu, K2) and the
+               quad stage (csrc/quad_labels.cu, K3); beside them the host
+               GPMF reader (csrc/gpmf_reader.cc, g++).
 3. scene     — the DS3-scale synthetic recording (60 s, 60 fps, 200 Hz IMU,
                960x540 division-undistortion camera, rolling shutter,
                charuco 10x8) rendered on the card, and its stage-8 input
@@ -48,7 +49,13 @@ Phases (every failure exits non-zero; nothing is caught and carried on):
                per-stage detection times (video.benchmark_block, the mask
                fetched packed and unpacked), K2's block mode against its
                plain version on one block (and at radius 5), with times;
-               then the calibrate_camera CLI with phase 8's bars.
+               then the calibrate_camera CLI with phase 8's bars. One K3
+               launch per block, its counters printed.
+8c. K3       — the quad stage on the card (csrc/quad_labels.cu) against the
+               host route (video._host_quads) on one 32-frame block of
+               those frames: the same quads and validity, exactly; K3's
+               time beside its bound and the host route's (mask fetch and
+               unpack, labelling and fit); its counters.
 9. pipeline  — the run_calibration CLI on the card on its default board
                (charuco), from a workspace seeded with phase 8b's corners
                (intrinsics) and the DS3 scene's corners (imu-cam) and its
@@ -183,6 +190,9 @@ SOURCE = "openimucameracalibrator_torch/csrc/gram.cu"
 REPLACES = "openimucameracalibrator_tpu/solver/pallas_gram.py:119"
 K2_SOURCE = "openimucameracalibrator_torch/csrc/corner_nms.cu"
 K2_REPLACES = "openimucameracalibrator_tpu/detect/pallas_kernels.py:184"
+K3_SOURCE = "openimucameracalibrator_torch/csrc/quad_labels.cu"
+K3_REPLACES = ("none: openimucameracalibrator_tpu/detect/video.py:_host_quads runs on the host "
+               "(scipy labelling, quads.find_quad_candidates)")
 
 
 def log(msg):
@@ -425,11 +435,11 @@ def kernel_phase(gram, shapes, captured):
     return rows
 
 
-def build_kernels(gram, kernels, gpmf):
-    """Build both kernels and the GPMF reader at once (one nvcc each, one
-    g++) and report each build."""
-    with concurrent.futures.ThreadPoolExecutor(3) as ex:
-        libs = list(ex.map(lambda b: b(), (gram.build, kernels.build, gpmf.library)))
+def build_kernels(*builders):
+    """Build the kernels and the GPMF reader at once (one nvcc each, one
+    g++; each module's ``build`` or ``library``) and report each build."""
+    with concurrent.futures.ThreadPoolExecutor(len(builders)) as ex:
+        libs = list(ex.map(lambda b: b(), builders))
     for lib in libs:
         log(f"[build] {lib.path} in {lib.build_seconds:.2f} s")
         for line in lib.build_log.splitlines():
@@ -668,10 +678,10 @@ def pipeline_phase(torch, mods, st, cam_corners, tmp):
     from seeded corner files, with K1's first launch of each family held
     against its plain version at the shapes the pipeline's own SEW gives
     it; then stages 5 and 7 alone. Checks every bar; returns K1's launches
-    by family during the CLI run, K1's check per family, and K2's launches
-    (2-D, block mode) during the run."""
-    (run_cal, imu_camera_calibrator, pose_estimator, imu_cam_rotation, se, gram, kernels, io,
-     lie, synthetic, cameras) = mods
+    by family during the CLI run, K1's check per family, K2's launches
+    (2-D, block mode) and K3's counters during the run."""
+    (run_cal, imu_camera_calibrator, pose_estimator, imu_cam_rotation, se, gram, kernels,
+     quad_kernels, io, lie, synthetic, cameras) = mods
     scene = st.scene
     ws = os.path.join(tmp, "pipeline_ws")
     os.makedirs(ws)
@@ -690,6 +700,7 @@ def pipeline_phase(torch, mods, st, cam_corners, tmp):
     real_gram = gram.fused_gram
     gram.reset_counts()
     kernels.reset_counts()
+    quad_kernels.reset_counts()
     imu_camera_calibrator.calibrate_imu_camera = spy
     gram.fused_gram = checking_gram_spy(gram, gram_checked)
     try:
@@ -708,6 +719,7 @@ def pipeline_phase(torch, mods, st, cam_corners, tmp):
     counts = dict(gram.fused_gram.launches_by_tag)
     launches = gram.fused_gram.launches
     k2_launches = (kernels.corner_response_nms.launches, kernels.corner_response_block.launches)
+    k3 = k3_counts(quad_kernels)
     res, sew, init, poses = (captured[k] for k in ("result", "sew", "init", "poses"))
     shapes, D = family_shapes(se, res.problem)
     n_lin = sum(s["linearizations"] for s in res.stages)
@@ -721,8 +733,8 @@ def pipeline_phase(torch, mods, st, cam_corners, tmp):
     log(f"[pipeline] stage 8: tangent dim D={D}; chunk plan: " + "; ".join(
         f"{n} K={K} R={R} F={F} L={L}" for n, K, R, _, F, _, L in shapes))
     log(f"[pipeline] default board (charuco); corner_response_nms launches {k2_launches[0]}, "
-        f"corner_response_block launches {k2_launches[1]} (the corners come from the seeded "
-        f"workspace)")
+        f"corner_response_block launches {k2_launches[1]}, K3 launches {k3[0]}, frames {k3[1]}, "
+        f"truncated_frames {k3[2]} (the corners come from the seeded workspace)")
     for i, s in enumerate(res.stages):
         log(f"[pipeline] stage 8 LM stage {i}: {s['iterations']} iterations, {s['status']}, "
             f"{s['seconds']:.3f} s wall, {s['linearizations']} linearizations")
@@ -757,6 +769,8 @@ def pipeline_phase(torch, mods, st, cam_corners, tmp):
             counts.get(f, 0) == n_lin for f in ("obs", "accel", "gyro")),
         "fused_gram held against its plain version at each family's shapes":
             sorted(gram_checked) == ["accel", "gyro", "obs"],
+        "one K3 launch per K2 block launch, 32 frames each":
+            k3[0] == k2_launches[1] and k3[1] == 32 * k3[0],
     }
 
     # Stages 5 and 7 alone on the pipeline's inputs: timed; the DS3 scene
@@ -789,7 +803,7 @@ def pipeline_phase(torch, mods, st, cam_corners, tmp):
         log(f"[pipeline] check {k}: {'ok' if ok else 'FAILED'}")
     if not all(checks.values()):
         raise SystemExit("pipeline checks failed")
-    return counts, gram_checked, k2_launches
+    return counts, gram_checked, k2_launches, k3
 
 
 def banded_phase(torch, mods, tmp):
@@ -977,30 +991,25 @@ def charuco_phase(torch, mods, tmp):
     """The charuco intrinsics path on the card: 300 rendered frames of the
     10x8 charuco board, extract_board on the batched video path, corners
     against the render's truth, per-stage detection times, K2's block mode
-    against its plain version, and the calibrate_camera CLI. Returns the
-    block-mode row and the corner file."""
-    board_extractor, video, kernels, io, cal_cli, recorded, synthetic, cameras, lie = mods
-    t0 = time.perf_counter()
-    pose = synthetic.sinusoid_trajectory(np.random.default_rng(3), 60.0, device="cuda", **TRAJ)
-    tex = recorded.charuco_texture(*SQUARES, CHARUCO["square_length"],
-                                   CHARUCO["marker_length"], 64, 32)
-    times = np.linspace(0.0, 9.0, N_FRAMES)
-    frames = recorded.render_frames(pose, times, "division_undistortion", CAM,
-                                    [1.0, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0], tex, (960, 540),
-                                    supersample=2, noise_std=1.5, seed=3, device="cuda")
-    torch.cuda.synchronize()
-    log(f"[charuco] {len(frames)} frames 960x540 of the 10x8 charuco board (0.04 m squares, "
-        f"0.03 m markers, DICT_ARUCO_ORIGINAL) rendered in {time.perf_counter() - t0:.2f} s")
-    opts = board_extractor.BoardExtractorOptions(board_type="charuco", squares_x=SQUARES[0],
-                                                 squares_y=SQUARES[1], batch_frames=32,
-                                                 **CHARUCO)
+    against its plain version, K3 against the host quad stage, and the
+    calibrate_camera CLI. Returns the block-mode row, K3's row and the
+    corner file."""
+    (board_extractor, video, kernels, quad_kernels, io, cal_cli, recorded, synthetic, cameras,
+     lie) = mods
+    times, frames, pose = charuco_frames(torch, recorded, synthetic, N_FRAMES)
+    opts = charuco_options(board_extractor)
     kernels.reset_counts()
+    quad_kernels.reset_counts()
     t0 = time.perf_counter()
     ds = board_extractor.extract_board(zip(times, frames), opts, fps=30.0, device="cuda")
     torch.cuda.synchronize()
     det_s = time.perf_counter() - t0
     block_launches = kernels.corner_response_block.launches
     nms_launches = kernels.corner_response_nms.launches
+    k3 = quad_kernels.quad_candidates_block
+    k3_counts = (k3.launches, k3.frames, k3.truncated_frames)
+    log(f"[charuco] K3 launches {k3_counts[0]}, frames labelled {k3_counts[1]}, truncated "
+        f"frames {k3_counts[2]}")
     spec = board_extractor._charuco_spec(opts)
     truth = charuco_truth(torch, pose, times, cameras, lie, spec)
     err = np.linalg.norm(ds.points2d - truth, axis=-1)[ds.valid]
@@ -1021,6 +1030,8 @@ def charuco_phase(torch, mods, tmp):
     row = k2_block_phase(torch, kernels, np.stack(frames[:32]))
     row["launches"] = block_launches
     row["detect_ms_per_frame"] = {k[:-3]: v / 32 for k, v in bench.items() if k.endswith("_ms")}
+    k3_row = k3_phase(torch, video, quad_kernels, np.stack(frames[:32]), spec)
+    k3_row["launches"] = k3_counts[0]
     del frames
 
     corners = os.path.join(tmp, "charuco_corners.uson")
@@ -1044,6 +1055,8 @@ def charuco_phase(torch, mods, tmp):
         "max corner error < 0.6 px": err.max() < 0.6,
         "one K2 block launch per block of 32 frames": block_launches == math.ceil(n / 32)
         and nms_launches == 0,
+        "one K3 launch per block of 32 frames":
+            k3_counts[:2] == (math.ceil(n / 32), 32 * math.ceil(n / 32)),
         ">= 20 active views": views >= 20,
         "|f - truth| < 1 px": abs(f_ - CAM[0]) < 1.0,
         "|cx - truth| < 1.5 px and |cy - truth| < 1.5 px":
@@ -1056,7 +1069,99 @@ def charuco_phase(torch, mods, tmp):
         log(f"[charuco] check {k}: {'ok' if ok else 'FAILED'}")
     if not all(checks.values()):
         raise SystemExit("charuco path checks failed")
-    return row, corners
+    return row, k3_row, corners
+
+
+def charuco_frames(torch, recorded, synthetic, n):
+    """The charuco intrinsics path's first n frames, rendered on the card:
+    (times, frames, the trajectory)."""
+    t0 = time.perf_counter()
+    pose = synthetic.sinusoid_trajectory(np.random.default_rng(3), 60.0, device="cuda", **TRAJ)
+    tex = recorded.charuco_texture(*SQUARES, CHARUCO["square_length"],
+                                   CHARUCO["marker_length"], 64, 32)
+    times = np.linspace(0.0, 9.0, N_FRAMES)[:n]
+    frames = recorded.render_frames(pose, times, "division_undistortion", CAM,
+                                    [1.0, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0], tex, (960, 540),
+                                    supersample=2, noise_std=1.5, seed=3, device="cuda")
+    torch.cuda.synchronize()
+    log(f"[charuco] {len(frames)} frames 960x540 of the 10x8 charuco board (0.04 m squares, "
+        f"0.03 m markers, DICT_ARUCO_ORIGINAL) rendered in {time.perf_counter() - t0:.2f} s")
+    return times, frames, pose
+
+
+def charuco_options(board_extractor):
+    return board_extractor.BoardExtractorOptions(board_type="charuco", squares_x=SQUARES[0],
+                                                 squares_y=SQUARES[1], batch_frames=32,
+                                                 **CHARUCO)
+
+
+def host_ms(fn, reps=5):
+    """Mean host-clock ms of fn() (host work that ends in host results)."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def k3_phase(torch, video, quad_kernels, block, spec):
+    """K3 against the host route on one block of charuco frames: the same
+    quads and validity, exactly; times; the kernels-line row (launches
+    filled in by the caller)."""
+    opts = video.VideoDetectorOptions(batch_frames=block.shape[0])
+    board = video._Board(spec, opts, torch.device("cuda"))
+    stack = torch.as_tensor(block, device="cuda")
+    _, maskd, _ = board.pixels(stack, False)
+    _, packed, _ = board.pixels(stack, True)
+    quad_kernels.reset_counts()
+    quads_b, qvalid, n_kept = board.quads(maskd)
+    torch.cuda.synchronize()
+    mask_np = maskd.cpu().numpy()
+    want_q, want_v = video._host_quads(mask_np, opts)
+    same = (np.array_equal(quads_b.cpu().numpy(), want_q)
+            and np.array_equal(qvalid.cpu().numpy(), want_v))
+    n_kept = n_kept.cpu().numpy()
+    quad_kernels.count_truncated(n_kept, opts.max_quads)
+    k3 = quad_kernels.quad_candidates_block
+    log(f"[K3] {tuple(maskd.shape)}: quads and qvalid equal the host route's exactly: {same}; "
+        f"valid quads per frame {int(want_v.sum(1).min())}-{int(want_v.sum(1).max())}, "
+        f"components in the area limits {int(n_kept.min())}-{int(n_kept.max())}; counters: "
+        f"launches {k3.launches}, frames {k3.frames}, truncated_frames {k3.truncated_frames}")
+    if not same or k3.launches != 1 or k3.frames != block.shape[0]:
+        raise SystemExit("K3 disagrees with the host quad stage")
+
+    def kernel():
+        return board.quads(maskd)
+
+    device_ms, eager_ms = graph_ms(kernel), cuda_ms(kernel)
+    device_ms2, eager_ms2 = graph_ms(kernel), cuda_ms(kernel)
+    w = maskd.shape[2]
+    fetch_ms = host_ms(lambda: video._unpack_mask(packed.cpu().numpy(), w))
+    quads_ms = host_ms(lambda: video._host_quads(mask_np, opts), reps=3)
+    plain_ms = fetch_ms + quads_ms
+    # Least time for the same work: the mask read once, the quads, their
+    # validity and the counts written once.
+    Fn, h, _ = maskd.shape
+    Q = opts.max_quads
+    nbytes = Fn * h * w + Fn * Q * (4 * 2 * 4 + 1) + Fn * 4
+    bound_ms = nbytes / HBM_BYTES_S * 1e3
+    eager, device = min(eager_ms, eager_ms2), min(device_ms, device_ms2)
+    log(f"[K3] {Fn}x{h}x{w}: kernel_ms={eager_ms:.4f},{eager_ms2:.4f} (per eager call; "
+        f"{device_ms:.4f},{device_ms2:.4f} device, CUDA graph of 20 calls); host route "
+        f"plain_ms={plain_ms:.2f} (mask fetch and unpack {fetch_ms:.2f}, labelling and fit "
+        f"{quads_ms:.2f}, host clock); bound_ms={bound_ms:.5f} (bytes {nbytes / 1e6:.1f} MB); "
+        f"share {100 * bound_ms / eager:.2f} % of the eager time, "
+        f"{100 * bound_ms / device:.2f} % of the device time")
+    return dict(name="quad_candidates_block", route="cuda", source=K3_SOURCE,
+                replaces=K3_REPLACES, launches=0, max_abs_err=0.0, ms=eager, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by="bytes", library_ms=None, ms_device=device,
+                shape=[Fn, h, w], truncated_frames=k3.truncated_frames)
+
+
+def k3_counts(quad_kernels):
+    """K3's counters: (launches, frames, truncated_frames)."""
+    k3 = quad_kernels.quad_candidates_block
+    return k3.launches, k3.frames, k3.truncated_frames
 
 
 def _timed(module, name, seconds):
@@ -1097,8 +1202,10 @@ def gopro_phase(torch, mods, tmp):
     recording, detect its frames on the card into a workspace, run the
     run_calibration CLI on the MP4's GPMF telemetry. Checks every bar;
     returns K2 block launches during detection, K1 launches by family
-    during the CLI, and K1's check per family."""
-    recorded, mp4_writer, board_extractor, gpmf, run_cal, io, gram, kernels, lie = mods
+    during the CLI, K1's check per family, and K3's counters during
+    detection."""
+    recorded, mp4_writer, board_extractor, gpmf, run_cal, io, gram, kernels, quad_kernels, lie = \
+        mods
     d, ws = os.path.join(tmp, "gopro"), os.path.join(tmp, "gopro_ws")
     os.makedirs(ws)
     kept, muxed, secs = [], [], {}
@@ -1158,6 +1265,7 @@ def gopro_phase(torch, mods, tmp):
         square_length=GOPRO["square_length"], marker_length=GOPRO["marker_length"],
         batch_frames=32)
     kernels.reset_counts()
+    quad_kernels.reset_counts()
     t0 = time.perf_counter()
     ds_cam = board_extractor.extract_board(zip(t_cam, frames_cam), opts, device="cuda")
     ds_ic = board_extractor.extract_board(zip(t_ic, frames_ic), opts, device="cuda")
@@ -1165,6 +1273,7 @@ def gopro_phase(torch, mods, tmp):
     det_s = time.perf_counter() - t0
     block_launches = kernels.corner_response_block.launches
     nms_launches = kernels.corner_response_nms.launches
+    k3 = k3_counts(quad_kernels)
     del kept, frames_cam, frames_ic
     io.save_corners(ds_cam, os.path.join(ws, "cam_corners.uson"))
     io.save_corners(ds_ic, os.path.join(ws, "imu_cam_corners.uson"))
@@ -1173,7 +1282,8 @@ def gopro_phase(torch, mods, tmp):
         f"({1e3 * det_s / (n_cam + n_ic):.2f} ms per frame); imu-cam corners per frame: mean "
         f"{per_frame.mean():.2f}, >= 20 in {int((per_frame >= 20).sum())} of {n_ic} frames; "
         f"intrinsics video {int(ds_cam.valid.sum())} corners; corner_response_block launches "
-        f"{block_launches}, corner_response_nms {nms_launches}")
+        f"{block_launches}, corner_response_nms {nms_launches}; K3 launches {k3[0]}, frames "
+        f"{k3[1]}, truncated_frames {k3[2]}")
 
     t0 = time.perf_counter()
     tel = gpmf.read_gopro_mp4(rec.imu_cam_video)
@@ -1250,6 +1360,7 @@ def gopro_phase(torch, mods, tmp):
         "finite result": all(math.isfinite(v) for v in numbers),
         "one K2 block launch per block of 32 frames": block_launches == math.ceil(n_cam / 32)
         + math.ceil(n_ic / 32) and nms_launches == 0,
+        "one K3 launch per block of 32 frames": k3[:2] == (block_launches, 32 * block_launches),
         "3 kernel launches per linearization": n_lin > 0 and launches == 3 * n_lin and all(
             counts.get(f, 0) == n_lin for f in ("obs", "accel", "gyro")),
         "fused_gram held against its plain version at each family's shapes":
@@ -1260,7 +1371,7 @@ def gopro_phase(torch, mods, tmp):
     if not all(checks.values()):
         raise SystemExit("gopro path checks failed")
     shutil.rmtree(d, ignore_errors=True)
-    return block_launches, counts, gram_checked
+    return block_launches, counts, gram_checked, k3
 
 
 def static_imu_phase(torch, mods, tmp):
@@ -1780,8 +1891,10 @@ def batch_cli_phase(torch, mods, tmp):
     the card, their frames fed to the detectors as phase 10 feeds them,
     intrinsics from the first recording's intrinsics video, then
     ``batch_calibration --mode joint``, held to that test's bars. Returns
-    the K2 launches (block, frame) and the K1 launches by family."""
-    recorded, board_extractor, camera_calibrator, io, batch_cli, kernels, gram, lie = mods
+    the K2 launches (block, frame), the K1 launches by family and K3's
+    counters."""
+    (recorded, board_extractor, camera_calibrator, io, batch_cli, kernels, quad_kernels, gram,
+     lie) = mods
     frames_of, recs = {}, []
     real_render = recorded.render_frames
     for i, seed in enumerate(BATCH_CLI_SEEDS):
@@ -1819,6 +1932,7 @@ def batch_cli_phase(torch, mods, tmp):
 
     board_extractor.extract_board_from_video = from_frames
     kernels.reset_counts()
+    quad_kernels.reset_counts()
     out_path = os.path.join(tmp, "batch_rig.json")
     try:
         out, wall, k1 = _counted(gram, {}, "batch CLI", lambda: batch_cli.main(
@@ -1833,13 +1947,15 @@ def batch_cli_phase(torch, mods, tmp):
     finally:
         board_extractor.extract_board_from_video = real_extract
     k2 = (kernels.corner_response_block.launches, kernels.corner_response_nms.launches)
+    k3 = k3_counts(quad_kernels)
     q = np.asarray(out["q_i_c"])
     ang = 2 * np.arccos(min(1.0, abs(float(np.dot(q, np.asarray(recs[0].q_i_c))))))
     t_err = float(np.max(np.abs(np.asarray(out["t_i_c"]) - np.asarray(recs[0].t_i_c))))
     log(f"[batch cli] joint CLI wall {wall:.2f} s: rotation error {np.rad2deg(ang):.4f} deg, "
         f"t_i_c error {t_err * 1e3:.2f} mm, sequences "
         f"{[(round(sq['mean_reproj_error_px'], 4), round(sq['time_offset_s'], 5)) for sq in out['sequences']]}; "
-        f"K2 launches (block, frame) {k2}, K1 launches {k1}")
+        f"K2 launches (block, frame) {k2}, K1 launches {k1}; K3 launches {k3[0]}, frames "
+        f"{k3[1]}, truncated_frames {k3[2]}")
     checks = {
         "two sequences, joint mode": out["n_sequences"] == 2 and out["mode"] == "joint",
         "rotation within 1 deg": ang < np.deg2rad(1.0),
@@ -1849,13 +1965,15 @@ def batch_cli_phase(torch, mods, tmp):
         "|time offset - truth| < 5 ms per sequence": all(
             abs(sq["time_offset_s"] - recs[0].time_offset) < 5e-3 for sq in out["sequences"]),
         "K2 ran on the card": sum(k2) > 0,
+        "one K3 launch per K2 block launch, 32 frames each":
+            k2[0] > 0 and k3[:2] == (k2[0], 32 * k2[0]),
         "K1 ran on the card": all(k1.get(f, 0) > 0 for f in ("obs", "accel", "gyro")),
     }
     for k, ok in checks.items():
         log(f"[batch cli] check {k}: {'ok' if ok else 'FAILED'}")
     if not all(checks.values()):
         raise SystemExit("batch CLI checks failed")
-    return k2, k1
+    return k2, k1, k3
 
 
 def main():
@@ -1880,7 +1998,8 @@ def main():
                                                     imu_camera_calibrator, pose_estimator,
                                                     static_imu_calibrator, telemetry)
     from openimucameracalibrator_torch.core import spline_estimator as se
-    from openimucameracalibrator_torch.detect import checkerboard, kernels, render, video
+    from openimucameracalibrator_torch.detect import (checkerboard, kernels, quad_kernels,
+                                                      render, video)
     from openimucameracalibrator_torch.models import cameras
     from openimucameracalibrator_torch.ops import lie
     from openimucameracalibrator_torch.parallel import multihost, schur, sharded
@@ -1894,8 +2013,7 @@ def main():
     log(f"[device] {name}; nvidia-smi: {smi}; torch {torch.__version__} "
         f"cuda {torch.version.cuda}; tf32 matmul {torch.backends.cuda.matmul.allow_tf32}")
 
-    build_kernels(gram, kernels, gpmf)
-
+    build_kernels(gram.build, kernels.build, quad_kernels.build, gpmf.library)
     tmp = tempfile.mkdtemp(prefix="oicc_chip_smoke_")
     st = stage8_setup(torch, device, tmp)
     scene, paths, shapes, D = st.scene, st.paths, st.shapes, st.D
@@ -1963,14 +2081,15 @@ def main():
         torch, (board_extractor, checkerboard, kernels, io, cal_cli), times, frames, tmp)
     del frames
 
-    block_row, charuco_corners = charuco_phase(
-        torch, (board_extractor, video, kernels, io, cal_cli, recorded, synthetic, cameras, lie),
-        tmp)
+    block_row, k3_row, charuco_corners = charuco_phase(
+        torch, (board_extractor, video, kernels, quad_kernels, io, cal_cli, recorded, synthetic,
+                cameras, lie), tmp)
 
-    pipeline_counts, pipeline_checked, k2_pipeline = pipeline_phase(
+    pipeline_counts, pipeline_checked, k2_pipeline, k3_pipeline = pipeline_phase(
         torch, (run_cal, imu_camera_calibrator, pose_estimator, imu_cam_rotation, se, gram,
-                kernels, io, lie, synthetic, cameras), st, charuco_corners, tmp)
+                kernels, quad_kernels, io, lie, synthetic, cameras), st, charuco_corners, tmp)
     k2_row["launches_pipeline"], block_row["launches_pipeline"] = k2_pipeline
+    k3_row["launches_pipeline"] = k3_pipeline[0]
     for row in rows:
         row["launches_banded"] = banded_counts.get(row["tag"], 0)
         row["launches_pipeline"] = pipeline_counts.get(row["tag"], 0)
@@ -1978,9 +2097,11 @@ def main():
         row["max_abs_err_pipeline"] = seen["max_abs_err"]
         row["shape_pipeline"] = {k: seen[k] for k in ("K", "R", "F", "L")}
 
-    gopro_blocks, gopro_counts, gopro_checked = gopro_phase(
-        torch, (recorded, mp4_writer, board_extractor, gpmf, run_cal, io, gram, kernels, lie), tmp)
+    gopro_blocks, gopro_counts, gopro_checked, k3_gopro = gopro_phase(
+        torch, (recorded, mp4_writer, board_extractor, gpmf, run_cal, io, gram, kernels,
+                quad_kernels, lie), tmp)
     k2_row["launches_gopro"], block_row["launches_gopro"] = 0, gopro_blocks
+    k3_row["launches_gopro"], k3_row["truncated_frames_gopro"] = k3_gopro[0], k3_gopro[2]
     for row in rows:
         row["launches_gopro"] = gopro_counts.get(row["tag"], 0)
         row["max_abs_err_gopro"] = gopro_checked[row["tag"]]["max_abs_err"]
@@ -1989,9 +2110,11 @@ def main():
 
     batch_rows, batch_counts = batch_phase(torch, (se, batch_estimator, lm, gram, lie))
     shard_counts = sharded_phase(torch, (se, sharded, schur, multihost, lm, gram))
-    k2_cli, k1_cli = batch_cli_phase(torch, (recorded, board_extractor, camera_calibrator, io,
-                                             batch_cli, kernels, gram, lie), tmp)
+    k2_cli, k1_cli, k3_cli = batch_cli_phase(
+        torch, (recorded, board_extractor, camera_calibrator, io, batch_cli, kernels, quad_kernels,
+                gram, lie), tmp)
     k2_row["launches_batch_cli"], block_row["launches_batch_cli"] = k2_cli[1], k2_cli[0]
+    k3_row["launches_batch_cli"] = k3_cli[0]
     for row in rows:
         tag = row["tag"]
         row["launches_batch"] = batch_counts["independent"].get(tag, 0)
@@ -2003,7 +2126,7 @@ def main():
     shutil.rmtree(tmp, ignore_errors=True)
     for row in rows:
         row.pop("tag")
-    rows += list(batch_rows.values()) + [k2_row, block_row]
+    rows += list(batch_rows.values()) + [k2_row, block_row, k3_row]
     log(json.dumps({"kernels": rows}))
     log(f"[done] {time.perf_counter() - t_start:.1f} s on {name}")
     log(smi)

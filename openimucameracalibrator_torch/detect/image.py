@@ -205,11 +205,18 @@ def corner_refine_fields(img: torch.Tensor, win: int = 5) -> torch.Tensor:
     gxx, gxy, gyy = gx * gx, gx * gy, gy * gy
     f = torch.stack([gxx, gxy, gyy, gxx * X + gxy * Y, gxy * X + gyy * Y], dim=-3)
     r = int(win)
+    out = F.conv2d(f.reshape(-1, 5, h, w), _field_window(r, img.device), padding=r, groups=5)
+    return out.reshape(f.shape).movedim(-3, -1)
+
+
+@functools.lru_cache(maxsize=None)
+def _field_window(r: int, device) -> torch.Tensor:
+    """(5, 1, 2r+1, 2r+1) f32: the Gaussian window of
+    :func:`corner_refine_fields` for each field, on ``device`` (made once,
+    so a call copies nothing from the host)."""
     dy, dx = np.meshgrid(np.arange(-r, r + 1), np.arange(-r, r + 1), indexing="ij")
     wgt = np.exp(-(dx * dx + dy * dy) / (2.0 * (r / 2.0) ** 2)).astype(np.float32)
-    k = torch.as_tensor(np.broadcast_to(wgt, (5, 1) + wgt.shape).copy(), device=img.device)
-    out = F.conv2d(f.reshape(-1, 5, h, w), k, padding=r, groups=5)
-    return out.reshape(f.shape).movedim(-3, -1)
+    return torch.as_tensor(np.broadcast_to(wgt, (5, 1) + wgt.shape).copy(), device=device)
 
 
 def refine_corners_from_fields(fields: torch.Tensor, corners: torch.Tensor,

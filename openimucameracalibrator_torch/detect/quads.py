@@ -117,7 +117,9 @@ def find_quad_candidates(mask: np.ndarray, opts: MarkerDetectorOptions):
     keep = ((sel_area >= opts.min_area_px)
             & (sel_area <= opts.max_area_frac * img_area))
     cand = np.flatnonzero(keep)
-    cand = cand[np.argsort(-sel_area[cand])][:opts.max_candidates]
+    # largest first; equal areas in label order (raster order of their
+    # first pixels), so the cut at max_candidates is deterministic
+    cand = cand[np.argsort(-sel_area[cand], kind="stable")][:opts.max_candidates]
     if cand.size == 0:
         return np.zeros((0, 4, 2))
     quad, ok = _fit_quads(cand, comp_starts, comp_ends, seg_row, x_min,

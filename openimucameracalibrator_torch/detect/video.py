@@ -1,20 +1,22 @@
 """Video-scale batched charuco detection.
 
 Port of ``detect/video.py`` of the JAX package. Frames are processed in
-fixed-size blocks; every pixel stage runs batched over the block on the
-device, and the only per-frame host work left is the irregular connected-
-component/quad stage, overlapped with frame decoding on a background
-thread. The JAX package's two ``jax.jit`` programs are eager PyTorch here,
-batched over the block's frames:
+fixed-size blocks, decoded on a background thread; every stage runs
+batched over the block. The JAX package's two ``jax.jit`` programs are
+eager PyTorch here, and its host quad stage a kernel on the card:
 
 1. ``_stage_pixels``: uint8 frames -> float32 gray + corner-response map
    (both stay on the device; the response is one launch of the CUDA
    kernel's block mode, ``kernels.corner_response_block``, on the card)
-   and the adaptive-threshold dark mask, bit-packed on the device when
-   ``pack_mask`` (the JAX package's choice, made for a TPU client link of
-   ~25 MB/s) or fetched as one byte per pixel when not.
-2. host: per-frame quad candidates from the mask (quads.find_quad_candidates),
-   padded to a static (F, Q, 4, 2) tensor.
+   and the adaptive-threshold dark mask.
+2. the quad candidates of each frame's mask, as a static (F, Q, 4, 2)
+   tensor and its (F, Q) validity. On the card: one launch of kernel K3
+   (``quad_kernels.quad_candidates_block``, connected components and the
+   quad fit), the mask never leaving the device. On the CPU: the host route
+   ``_host_quads`` (``quads.find_quad_candidates`` frame by frame), from
+   the mask bit-packed when ``pack_mask`` (the JAX package's choice, made
+   for a TPU client link of ~25 MB/s) or one byte per pixel when not.
+   Which route runs follows the block's device, as for K1 and K2.
 3. ``_stage_decode_interp``: homography cell-grid sampling with an ignored
    cell margin, matmul dictionary decode, board-slot assignment,
    board-aware recovery of undecoded markers (refineDetectedMarkers
@@ -22,10 +24,14 @@ batched over the block's frames:
    subpixel refinement, drift/response gates. All homographies are
    least-squares solves (``pnp.homography_ls``), not SVDs.
 
-The block loop is a 2-deep software pipeline: while the host runs the quad
-stage for block i, the device runs the pixel stage for block i+1; every
-device->host copy is asynchronous into pinned memory with an event, so a
-fetch waits only for the work it needs.
+The block loop is a 2-deep software pipeline: block i's quad and decode
+stages are enqueued after block i+1's pixel stage, before block i-1's
+results are read; every device->host copy is asynchronous into pinned
+memory with an event, so a fetch waits only for the work it needs. On the
+card the frames go up from pinned memory, nothing from the upload to the
+decode stage synchronises with the host (the host waits only for the
+results of the block before last), and the quad and decode stages of a
+block are one CUDA graph replay (``_CardBlocks``) from the second block on.
 
 The single-frame path (detect/charuco.py) is the reference implementation
 the batched path is held against.
@@ -34,6 +40,7 @@ the batched path is held against.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import queue as queue_mod
 import threading
 import time
@@ -45,6 +52,7 @@ import torch
 from openimucameracalibrator_torch.detect import aruco_dict as adict_mod
 from openimucameracalibrator_torch.detect import charuco as charuco_mod
 from openimucameracalibrator_torch.detect import image as im
+from openimucameracalibrator_torch.detect import quad_kernels
 from openimucameracalibrator_torch.detect import quads as quads_mod
 from openimucameracalibrator_torch.ops import pnp
 from openimucameracalibrator_torch.utils import precision
@@ -54,7 +62,7 @@ from openimucameracalibrator_torch.utils import precision
 class VideoDetectorOptions:
     batch_frames: int = 32  # frames per block (the JAX package's v5e sweep)
     max_quads: int = 128         # static quad slots per frame
-    # Mask resolution divisor for host labeling. 1 = full resolution:
+    # Mask resolution divisor for labeling. 1 = full resolution:
     # half-res quad corners start ~2 px off, which costs decoded markers
     # on blurred/compressed video.
     label_downsample: int = 1
@@ -75,8 +83,9 @@ class VideoDetectorOptions:
     # default: hull corners are within ~1 px at full resolution, which
     # the sampling margin absorbs.
     refine_markers: bool = False
-    # Bit-pack the dark mask on the device before fetching it (8x fewer
-    # bytes; the JAX package's behaviour). False fetches one byte per pixel.
+    # CPU route only (the card labels the mask where it lies): bit-pack the
+    # dark mask before handing it to the host quad stage (8x fewer bytes;
+    # the JAX package's behaviour). False hands over one byte per pixel.
     pack_mask: bool = True
 
 
@@ -118,7 +127,9 @@ def _unpack_mask(packed_np: np.ndarray, w: int) -> np.ndarray:
     return np.unpackbits(packed_np, axis=-1)[..., :w].astype(bool)
 
 
+@functools.lru_cache(maxsize=None)
 def _unit_square(device) -> torch.Tensor:
+    """Made once per device, so a decode copies nothing from the host."""
     return torch.tensor([[0.0, 0.0], [1.0, 0.0], [1.0, 1.0], [0.0, 1.0]], dtype=torch.float32,
                         device=device)
 
@@ -235,9 +246,8 @@ def _stage_decode_interp(gray, resp, quads_b, qvalid, codes, board_corners,
         proj_inb = ((proj[..., 0] > 1) & (proj[..., 0] < w_img - 2)
                     & (proj[..., 1] > 1) & (proj[..., 1] < h_img - 2))
         # keep refine windows inside the image for the parked slots
-        proj = torch.minimum(torch.clamp(proj, min=2.0),
-                             torch.tensor([w_img - 3.0, h_img - 3.0], dtype=proj.dtype,
-                                          device=dev))
+        proj = torch.stack([torch.clamp(proj[..., 0], 2.0, w_img - 3.0),
+                            torch.clamp(proj[..., 1], 2.0, h_img - 3.0)], dim=-1)
         pf = proj.reshape(Fn, K * 4, 2)
         pref = _refine_frames(gray, pf, win) if refine_markers else pf
         pq = pref.reshape(Fn, K, 4, 2)
@@ -378,10 +388,23 @@ class _Fetch:
 # Driver
 # ---------------------------------------------------------------------------
 
-def _block_iter(frames: Iterable[tuple], F: int, prefetch: int) -> Iterator:
+def _stack(frames: list, pinned: bool):
+    """The (F, H, W) uint8 block of ``frames``: a numpy array, or with
+    ``pinned`` a tensor in pinned host memory, which the card copies from
+    without the host waiting."""
+    if not pinned:
+        return np.stack(frames)
+    out = torch.empty((len(frames),) + frames[0].shape, dtype=torch.uint8, pin_memory=True)
+    np.stack(frames, out=out.numpy())
+    return out
+
+
+def _block_iter(frames: Iterable[tuple], F: int, prefetch: int,
+                pinned: bool = False) -> Iterator:
     """Group (t, gray) into (times (F,), stack (F,H,W) u8, n_real) blocks,
-    decoded on a background thread so decode overlaps device compute. A
-    short tail block is padded with copies of its last frame."""
+    decoded and stacked (see :func:`_stack`) on a background thread so
+    decode overlaps device compute. A short tail block is padded with
+    copies of its last frame."""
     q: queue_mod.Queue = queue_mod.Queue(maxsize=prefetch)
     _END = object()
     failure = []
@@ -393,14 +416,14 @@ def _block_iter(frames: Iterable[tuple], F: int, prefetch: int) -> Iterator:
                 buf_t.append(t)
                 buf_f.append(np.asarray(g, np.uint8))
                 if len(buf_t) == F:
-                    q.put((np.asarray(buf_t), np.stack(buf_f), F))
+                    q.put((np.asarray(buf_t), _stack(buf_f, pinned), F))
                     buf_t, buf_f = [], []
             if buf_t:
                 n = len(buf_t)
                 pad = F - n
                 buf_f += [buf_f[-1]] * pad
                 buf_t += [buf_t[-1]] * pad
-                q.put((np.asarray(buf_t), np.stack(buf_f), n))
+                q.put((np.asarray(buf_t), _stack(buf_f, pinned), n))
         except BaseException as e:  # handed to the consumer, which raises it
             failure.append(e)
         finally:
@@ -440,6 +463,12 @@ class _Board:
         return _stage_pixels(stack_dev, o.marker.threshold_radius, o.marker.threshold_c,
                              o.label_downsample, 6, o.response_check, pack)
 
+    def quads(self, maskd):
+        """K3 on a mask block on the card: (quads_b, qvalid, n_kept)."""
+        o = self.opts
+        return quad_kernels.quad_candidates_block(maskd, o.label_downsample, o.max_quads,
+                                                  o.marker)
+
     def decode(self, gray, resp, quads_b, qvalid):
         o = self.opts
         dev = gray.device
@@ -458,6 +487,58 @@ class _Board:
         return _unpack_mask(m, w) if self.opts.pack_mask else m
 
 
+class _CardBlocks:
+    """K3 and the decode stage of each block on the card, as
+    ``(refined, ok, n_kept)``.
+
+    The decode stage is some 1,500 small launches, which eager PyTorch
+    issues at tens of ms of host time a 32-frame block against a few ms of
+    device time. So the first block of a shape runs eagerly, which also
+    loads what a capture needs (the K3 library, the cuBLAS handles, the
+    device constants); the second is captured, its tensors becoming the
+    graph's inputs, as one CUDA graph that it and every later block of the
+    shape replay, one launch each. A replay writes the same output
+    tensors: the caller copies a block's out (``_Fetch``, enqueued behind
+    the replay on the same stream) before the next replay. The graphs live
+    as long as the object, one ``detect_charuco_video`` call.
+    """
+
+    def __init__(self, board: _Board):
+        self.board = board
+        self.graphs = {}  # block shape -> (graph, inputs, outputs), or None once run eagerly
+
+    def stages(self, gray, mask, resp):
+        quads_b, qvalid, n_kept = self.board.quads(mask)
+        refined, ok, _ = self.board.decode(gray, resp, quads_b, qvalid)
+        return refined, ok, n_kept
+
+    def __call__(self, gray, mask, resp):
+        key = tuple(gray.shape)
+        if key not in self.graphs:
+            self.graphs[key] = None
+            return self.stages(gray, mask, resp)
+        if self.graphs[key] is None:
+            # Captured on a side stream without torch.cuda.graph's device
+            # sync and emptying of both allocator caches (~0.5 s a capture);
+            # thread_local, as the frame producer allocates pinned memory
+            # meanwhile.
+            graph, stream = torch.cuda.CUDAGraph(), torch.cuda.Stream(gray.device)
+            with torch.cuda.stream(stream):
+                graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    outputs = self.stages(gray, mask, resp)
+                finally:
+                    graph.capture_end()
+            self.graphs[key] = graph, (gray, mask, resp), outputs
+        else:
+            graph, inputs, outputs = self.graphs[key]
+            for dst, src in zip(inputs, (gray, mask, resp)):
+                dst.copy_(src)
+        graph.replay()
+        quad_kernels.count_launch(key[0])
+        return outputs
+
+
 def detect_charuco_video(frames: Iterable[tuple],
                          spec: "charuco_mod.CharucoBoardSpec",
                          opts: VideoDetectorOptions | None = None, device=None):
@@ -465,17 +546,25 @@ def detect_charuco_video(frames: Iterable[tuple],
     ``device`` (default ``"cuda"``).
 
     Yields (time_s, ids (K,), corners (K, 2)) per input frame, in order.
-    While the host runs the quad stage for block i, the device already
-    runs the pixel stage for block i+1, and block i's decode is enqueued
-    before block i-1's results are read.
+    Block i's quad and decode stages are enqueued after block i+1's pixel
+    stage, before block i-1's results are read. On the card the quads come
+    from kernel K3 on the device-resident mask, each block is uploaded
+    from pinned memory without the host waiting, and K3 and the decode
+    stage run as one CUDA graph from the second block on (``_CardBlocks``);
+    on the CPU the quads come from the host route ``_host_quads``.
     """
     device = precision.resolve_device(device)
     opts = opts or VideoDetectorOptions()
     board = _Board(spec, opts, device)
+    on_card = device.type == "cuda"
+    pack = opts.pack_mask and not on_card
+    card_blocks = _CardBlocks(board) if on_card else None
 
     def finish(item):
         times, n_real, fetched = item
-        refined, ok = fetched.get()
+        refined, ok, *n_kept = fetched.get()
+        if n_kept:
+            quad_kernels.count_truncated(n_kept[0], opts.max_quads)
         out = []
         for f in range(n_real):
             ids = np.nonzero(ok[f])[0]
@@ -485,19 +574,24 @@ def detect_charuco_video(frames: Iterable[tuple],
 
     def decode(pending):
         t_p, n_p, (gray_p, mask_p, resp_p) = pending
+        if on_card:
+            return t_p, n_p, _Fetch(*card_blocks(gray_p, mask_p, resp_p))
         quads_b, qvalid = _host_quads(board.mask_np(mask_p, mask_w), opts)
         refined, ok, _ = board.decode(gray_p, resp_p, quads_b, qvalid)
         return t_p, n_p, _Fetch(refined, ok)
 
-    pending_pix = None   # (times, n_real, (gray, mask fetch, resp))
+    pending_pix = None   # (times, n_real, (gray, mask or its fetch, resp))
     pending_out = None   # (times, n_real, fetch of (refined, ok))
     mask_w = None
-    for times, stack, n_real in _block_iter(frames, opts.batch_frames, opts.decode_queue):
+    for times, stack, n_real in _block_iter(frames, opts.batch_frames, opts.decode_queue,
+                                            pinned=on_card):
         if mask_w is None:
             mask_w = (stack.shape[2] // opts.label_downsample
                       if opts.label_downsample > 1 else stack.shape[2])
-        gray, maskd, resp = board.pixels(torch.as_tensor(stack, device=device), opts.pack_mask)
-        handles = (gray, _Fetch(maskd), resp)
+        stack_dev = (stack.to(device, non_blocking=True) if on_card
+                     else torch.as_tensor(stack, device=device))
+        gray, maskd, resp = board.pixels(stack_dev, pack)
+        handles = (gray, maskd if on_card else _Fetch(maskd), resp)
         if pending_pix is not None:
             out = decode(pending_pix)
             if pending_out is not None:
@@ -524,9 +618,13 @@ def benchmark_block(frames_block: np.ndarray, spec, opts=None, n_iters: int = 5,
     Times, in ms for the F-frame block (host clock around work that ends
     in a device synchronisation, mean of ``n_iters``): the pixel stage with
     the mask packed and unpacked, the mask fetch + unpack both ways, the
-    host quad stage and the decode + interpolation stage. Returns them
-    with the implied device-resident frames/s (block period = max(host
-    quads, pixels + decode), as the pipeline overlaps the two).
+    host quad stage, on the card kernel K3 on the unpacked mask, and the
+    decode + interpolation stage; on the card also K3 and the decode stage
+    as the pipeline runs them, one CUDA graph replay (``_CardBlocks``).
+    Returns them with the implied device-resident frames/s of the route the
+    block's device takes: on the card a block period of pixels (unpacked) +
+    that replay, on the CPU max(host quads, pixels + decode), as the
+    pipeline overlaps the two.
     """
     device = precision.resolve_device(device)
     opts = opts or VideoDetectorOptions()
@@ -552,8 +650,7 @@ def benchmark_block(frames_block: np.ndarray, spec, opts=None, n_iters: int = 5,
         raise RuntimeError("benchmark_block: the packed and unpacked masks differ")
     t_quads, (quads_b, qvalid) = timed(lambda: _host_quads(mask_np, opts))
     t_dec, _ = timed(lambda: board.decode(gray, resp, quads_b, qvalid))
-    block_ms = max(t_quads, t_pix + t_dec)
-    return {
+    out = {
         "frames_per_block": int(Fn),
         "pixels_ms": t_pix,
         "pixels_unpacked_ms": t_pix_unpacked,
@@ -561,5 +658,14 @@ def benchmark_block(frames_block: np.ndarray, spec, opts=None, n_iters: int = 5,
         "mask_fetch_unpacked_ms": t_fetch_unpacked,
         "host_quads_ms": t_quads,
         "decode_interp_ms": t_dec,
-        "device_resident_fps": Fn / block_ms * 1e3,
     }
+    if device.type == "cuda":
+        out["k3_quads_ms"], _ = timed(lambda: board.quads(mask_u8))
+        card_blocks = _CardBlocks(board)
+        card_blocks(gray, mask_u8, resp)  # eager; timed's warm call captures
+        out["k3_decode_graph_ms"], _ = timed(lambda: card_blocks(gray, mask_u8, resp))
+        block_ms = t_pix_unpacked + out["k3_decode_graph_ms"]
+    else:
+        block_ms = max(t_quads, t_pix + t_dec)
+    out["device_resident_fps"] = Fn / block_ms * 1e3
+    return out

@@ -46,7 +46,9 @@ def _tmat(c, s):
 
 def _denormalize(Hn, co, so, ci, si):
     """H = Ti^{-1} Hn To, scaled to ||H||_F = 1 with H[2,2] >= 0."""
-    H = torch.linalg.solve(_tmat(ci, si), Hn @ _tmat(co, so))
+    # Ti is triangular with si > 0 on its diagonal, so never singular: the
+    # unchecked solve (the same LU) spares the error check's host sync.
+    H = torch.linalg.solve_ex(_tmat(ci, si), Hn @ _tmat(co, so))[0]
     H = H / torch.linalg.matrix_norm(H, keepdim=True)
     sign = torch.where(H[..., 2:3, 2:3] < 0, -1.0, 1.0).to(H.dtype)
     return H * sign

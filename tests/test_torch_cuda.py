@@ -1,5 +1,5 @@
 """The port's CUDA kernels against their plain versions (K1, K2 and K2's
-block mode), and the stage-8 input stages, the static IMU calibration and
+block mode, K3 against the host quad stage), and the stage-8 input stages, the static IMU calibration and
 the batched camera calibration against the same functions on the CPU, on
 the card.
 
@@ -10,15 +10,19 @@ without the repository's conftest (which imports JAX):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
+from scipy import ndimage
 
 from openimucameracalibrator_torch.core import (camera_calibrator, imu_cam_rotation,
                                                 pose_estimator, static_imu_calibrator)
-from openimucameracalibrator_torch.detect import image, kernels, render
+from openimucameracalibrator_torch.detect import (aruco_dict, charuco, image, kernels,
+                                                  quad_kernels, render, video)
 from openimucameracalibrator_torch.models import cameras
-from openimucameracalibrator_torch.ops import lie
+from openimucameracalibrator_torch.ops import lie, pnp
 from openimucameracalibrator_torch.solver import gram
 from openimucameracalibrator_torch.utils import synthetic
 from openimucameracalibrator_torch.utils.types import CameraCalibration, CornerDataset, ImuData
@@ -394,3 +398,258 @@ def test_cuda_sharded_matches_single_device(cuda_device):
     assert (g1 - g0).abs().max().item() <= 1e-5 * g0.abs().max().item()
     assert float(c1) == pytest.approx(float(c0), rel=1e-5)
     assert float(cost(prm)) == pytest.approx(float(c0), rel=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# K3: the quad stage of the batched charuco path
+# ---------------------------------------------------------------------------
+
+_DICT = aruco_dict.aruco_original_dictionary(64)
+_SPEC = charuco.CharucoBoardSpec(10, 8, 0.04, 0.03, _DICT)
+
+
+@functools.lru_cache(maxsize=None)
+def _charuco_views(n, seed=3):
+    """n warped renders (540x660) of the 10x8 charuco board, as the CPU
+    charuco tests make them, with 1.5 DN noise: uint8 (n, 540, 660)."""
+    img = render.render_charuco_board(_DICT, 10, 8, 0.04, 0.03, px_per_square=60, margin_px=30)
+    h0, w0 = img.shape
+    rng = np.random.default_rng(seed)
+    src = np.float64([[0, 0], [w0, 0], [w0, h0], [0, h0]])
+    out = []
+    for _ in range(n):
+        dst = (np.float64([[50, 40], [w0 - 60, 45], [w0 - 40, h0 - 50], [55, h0 - 35]])
+               + rng.uniform(-40, 40, (4, 2)))
+        f64 = dict(dtype=torch.float64)
+        H = pnp.homography_dlt(torch.as_tensor(src[None], **f64),
+                               torch.as_tensor(dst[None], **f64),
+                               torch.ones((1, 4), **f64))[0].numpy()
+        view = render.warp_image(img, H / H[2, 2], (h0, w0)) + rng.normal(0.0, 1.5, (h0, w0))
+        out.append(np.clip(np.rint(view), 0, 255).astype(np.uint8))
+    return np.stack(out)
+
+
+def _blobs(F, h, w, seed, sigma=4.0, level=0.6):
+    """Thresholded smoothed noise: irregular components with holes, forks
+    and U-shapes that join late, some touching the borders."""
+    rng = np.random.default_rng(seed)
+    field = ndimage.gaussian_filter(rng.normal(size=(F, h, w)), (0, sigma, sigma))
+    return field > level * field.std()
+
+
+def _borders():
+    """Components touching every border: a ring round the frame, blocks in
+    the four corners, a band from the left to the right border, and a
+    frame of blobs."""
+    m = np.zeros((3, 100, 130), bool)
+    m[0, :3], m[0, -3:], m[0, :, :3], m[0, :, -3:] = True, True, True, True
+    m[0, 30:60, 40:75] = True
+    m[1, :20, :25], m[1, :18, -30:], m[1, -22:, :27], m[1, -15:, -33:] = True, True, True, True
+    m[1, 45:55, :] = True
+    m[1, 60:75, 33:97] = True  # across the 32- and 64-pixel warp segment edges
+    m[2] = _blobs(1, 100, 130, seed=5, sigma=6.0, level=0.3)[0]
+    return m
+
+
+def _polygons(F, h, w, seed, n=30):
+    """Filled convex quadrilaterals at random sizes and angles (pixel
+    centres inside all four edges)."""
+    rng = np.random.default_rng(seed)
+    m = np.zeros((F, h, w), bool)
+    ys, xs = np.mgrid[0:h, 0:w]
+    for f in range(F):
+        for _ in range(n):
+            c = rng.uniform([15, 15], [w - 15, h - 15])
+            r = rng.uniform(5, 25)
+            a = np.sort(rng.uniform(0, 2 * np.pi, 4))
+            v = c + r * np.stack([np.cos(a), np.sin(a)], -1)
+            inside = np.ones((h, w), bool)
+            for k in range(4):
+                p, q = v[k], v[(k + 1) % 4]
+                inside &= (q[0] - p[0]) * (ys - p[1]) - (q[1] - p[1]) * (xs - p[0]) >= 0
+            m[f] |= inside
+    return m
+
+
+def _tall():
+    """A diamond 151 rows high and a slanted bar 200 rows high: more rows
+    than P/2 = 64, so the quad fit takes every stride-th row."""
+    m = np.zeros((2, 300, 300), bool)
+    ys, xs = np.mgrid[0:300, 0:300]
+    m[0] = np.abs(xs - 150) + np.abs(ys - 150) <= 75
+    m[1] = (ys >= 50) & (ys < 250) & (xs >= 60 + ys // 2) & (xs < 120 + ys // 2)
+    return m
+
+
+def _squares(F, h, w, seed, sizes, pitch):
+    """A grid of squares with sides drawn from ``sizes``: many components of
+    equal area, more than Q of them."""
+    rng = np.random.default_rng(seed)
+    m = np.zeros((F, h, w), bool)
+    for f in range(F):
+        for y in range(2, h - pitch, pitch):
+            for x in range(2, w - pitch, pitch):
+                k = int(rng.choice(sizes))
+                m[f, y:y + k, x:x + k] = True
+    return m
+
+
+K3_CASES = {
+    # rendered charuco views: the masks of the pixel stage on the card
+    "rendered": dict(views=3),
+    "rendered_down2": dict(views=3, down=2),
+    "empty": dict(mask=lambda: np.zeros((2, 64, 96), bool)),
+    "borders": dict(mask=_borders),
+    "blobs": dict(mask=lambda: _blobs(4, 120, 200, seed=1)),
+    # full size, and more than Q = 128 components in the area limits
+    "blobs_960x540": dict(mask=lambda: _blobs(2, 540, 960, seed=2, sigma=5.0, level=0.4),
+                          truncated=True),
+    "polygons": dict(mask=lambda: _polygons(3, 240, 320, seed=4)),
+    "tall": dict(mask=_tall),
+    # more than Q = 128 kept components, areas 81, 100 and 121: ties at the cut
+    "crowded": dict(mask=lambda: _squares(2, 200, 300, seed=6, sizes=(9, 10, 11), pitch=14),
+                    truncated=True),
+    # every area equal, Q = 16: the cut falls inside one tie
+    "tied": dict(mask=lambda: _squares(1, 120, 160, seed=7, sizes=(10,), pitch=16),
+                 max_quads=16, truncated=True),
+}
+
+
+def _kept(mask, down, marker):
+    """Components per frame inside find_quad_candidates' area limits."""
+    out = []
+    for m in mask:
+        labels, n = ndimage.label(m)
+        areas = np.bincount(labels.ravel(), minlength=n + 1)[1:]
+        out.append(int(((areas >= marker.min_area_px / (down * down))
+                        & (areas <= marker.max_area_frac * m.size)).sum()))
+    return np.array(out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(K3_CASES))
+def test_cuda_quad_kernel_matches_host(cuda_device, case):
+    """K3 against the host quad stage (video._host_quads: scipy labelling
+    and quads.find_quad_candidates) on the same masks, frame by frame: the
+    same quads and qvalid, exactly (every coordinate is an integer pixel
+    index); n_kept equals the host's count of components inside the area
+    limits."""
+    spec = K3_CASES[case]
+    down = spec.get("down", 1)
+    opts = video.VideoDetectorOptions(label_downsample=down,
+                                      max_quads=spec.get("max_quads", 128))
+    if "views" in spec:
+        stack = torch.as_tensor(_charuco_views(spec["views"]), device=cuda_device)
+        _, maskd, _ = video._stage_pixels(stack, opts.marker.threshold_radius,
+                                          opts.marker.threshold_c, down, 6, False, pack=False)
+    else:
+        maskd = torch.as_tensor(spec["mask"](), device=cuda_device)
+    mask_np = maskd.cpu().numpy()
+    before = quad_kernels.quad_candidates_block.launches, quad_kernels.quad_candidates_block.frames
+    quads_b, qvalid, n_kept = quad_kernels.quad_candidates_block(maskd, down, opts.max_quads,
+                                                                 opts.marker)
+    torch.cuda.synchronize()
+    assert (quad_kernels.quad_candidates_block.launches,
+            quad_kernels.quad_candidates_block.frames) == (before[0] + 1,
+                                                           before[1] + mask_np.shape[0])
+    want_q, want_v = video._host_quads(mask_np, opts)
+    np.testing.assert_array_equal(qvalid.cpu().numpy(), want_v)
+    np.testing.assert_array_equal(quads_b.cpu().numpy(), want_q)
+    kept = _kept(mask_np, down, opts.marker)
+    np.testing.assert_array_equal(n_kept.cpu().numpy(), kept)
+    if case in ("rendered", "rendered_down2", "polygons", "tall"):
+        assert want_v.sum(1).min() >= (30 if case.startswith("rendered") else 1)
+    assert (kept > opts.max_quads).any() == spec.get("truncated", False)
+    if case == "empty":
+        assert not want_v.any()
+    for bad in (maskd.to(torch.uint8), maskd[0], maskd.transpose(1, 2)):
+        with pytest.raises(ValueError):
+            quad_kernels.quad_candidates_block(bad, down, opts.max_quads, opts.marker)
+
+
+@pytest.mark.cuda
+def test_cuda_detection_block_makes_no_host_sync(cuda_device):
+    """One block from board.pixels through K3 to board.decode under
+    torch.cuda.set_sync_debug_mode("error"): nothing in the chain waits on
+    the device (a first block, outside the check, builds the kernels and
+    the device constants)."""
+    opts = video.VideoDetectorOptions(batch_frames=4)
+    board = video._Board(_SPEC, opts, cuda_device)
+    stack = torch.as_tensor(_charuco_views(4), device=cuda_device)
+
+    def block():
+        gray, maskd, resp = board.pixels(stack, False)
+        quads_b, qvalid, n_kept = board.quads(maskd)
+        return board.decode(gray, resp, quads_b, qvalid) + (n_kept,)
+
+    want = block()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = block()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    (refined, ok, n_markers, n_kept), (refined_w, ok_w, n_markers_w, n_kept_w) = got, want
+    assert torch.equal(n_kept, n_kept_w) and torch.equal(n_markers, n_markers_w)
+    assert torch.equal(ok, ok_w) and int(ok.sum(1).min()) >= 55
+    assert (refined - refined_w)[ok].abs().max().item() <= 1e-3
+
+
+@pytest.mark.cuda
+def test_cuda_graphed_blocks_match_eager(cuda_device):
+    """video._CardBlocks (K3 and the decode stage: eager at a shape's first
+    block, captured as a CUDA graph at its second, replayed from then on)
+    against the eager stages on three blocks of different views: the same
+    quad counts and corner flags, corners within 1e-3 px as between two
+    eager runs (the sync test above); K3's counters count each replay as a
+    launch and the capture as none."""
+    opts = video.VideoDetectorOptions(batch_frames=2)
+    board = video._Board(_SPEC, opts, cuda_device)
+    views = torch.as_tensor(_charuco_views(6), device=cuda_device)
+    blocks = [board.pixels(views[k:k + 2], False) for k in (0, 2, 4)]
+    card = video._CardBlocks(board)
+    quad_kernels.reset_counts()
+    # the captured block's tensors become the graph's inputs: hand it copies
+    got = [[t.clone() for t in card(*[x.clone() for x in b])] for b in blocks]
+    torch.cuda.synchronize()
+    assert (quad_kernels.quad_candidates_block.launches,
+            quad_kernels.quad_candidates_block.frames) == (3, 6)
+    assert card.graphs[(2,) + tuple(views.shape[1:])] is not None
+    for (refined, ok, n_kept), b in zip(got, blocks):
+        refined_w, ok_w, n_kept_w = card.stages(*b)
+        assert torch.equal(n_kept, n_kept_w) and torch.equal(ok, ok_w)
+        assert int(ok.sum(1).min()) >= 55
+        assert (refined - refined_w)[ok].abs().max().item() <= 1e-3
+    assert not torch.equal(got[0][0], got[2][0])
+
+
+@pytest.mark.cuda
+def test_cuda_video_detection_matches_the_cpu(cuda_device, monkeypatch):
+    """detect_charuco_video on the card (K2's block mode, K3, the decode
+    stage) against the CPU route (plain response, host quads) on five
+    views in blocks of 2 (a padded tail block): the same ids in every
+    frame, corners within 1e-3 px (the masks agree bit for bit, since the
+    threshold's window sums are sums of integers; the response and the
+    subpixel refinement are float32 sums in other orders, as in the CPU
+    tests against the JAX package). K3 runs once per block and the host
+    quad stage never on the card."""
+    frames = [(0.1 * k, g) for k, g in enumerate(_charuco_views(5))]
+    opts = video.VideoDetectorOptions(batch_frames=2)
+    want = list(video.detect_charuco_video(iter(frames), _SPEC, opts, device="cpu"))
+
+    def host_quads(*a, **kw):
+        raise AssertionError("the host quad stage ran on the card")
+
+    monkeypatch.setattr(video, "_host_quads", host_quads)
+    quad_kernels.reset_counts()
+    got = list(video.detect_charuco_video(iter(frames), _SPEC, opts, device=cuda_device))
+    assert (quad_kernels.quad_candidates_block.launches,
+            quad_kernels.quad_candidates_block.frames,
+            quad_kernels.quad_candidates_block.truncated_frames) == (3, 6, 0)
+    assert len(got) == len(want) == len(frames)
+    for (t, ids, pts), (t_w, ids_w, pts_w) in zip(got, want):
+        assert t == t_w
+        np.testing.assert_array_equal(ids, ids_w)
+        np.testing.assert_allclose(pts, pts_w, rtol=0, atol=1e-3)
+        assert len(ids) >= 55
