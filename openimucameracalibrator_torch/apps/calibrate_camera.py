@@ -43,8 +43,8 @@ def run(args) -> str:
     print(f"initialization + view dedup: {details['init_seconds']:.3f} s, "
           f"{len(details['picked_views'])} of {ds.num_views} views picked")
     for i, st in enumerate(details["lm_stages"]):
-        print(f"LM stage {i}: {st['iterations']} iterations, {st['status']}, "
-              f"{st['seconds']:.3f} s")
+        print(f"LM solve {i} (stage {st['stage']}): {st['iterations']} iterations, "
+              f"{st['status']}, {st['seconds']:.3f} s, {st['valid_obs']} observations")
     print(f"model={calib.model_name} reproj_error={calib.mean_reproj_error:.4f}px "
           f"views={int(details['active'].sum())} -> {args.save_path_calib_dataset}")
     return args.save_path_calib_dataset

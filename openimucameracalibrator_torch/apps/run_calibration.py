@@ -195,7 +195,7 @@ def run(args) -> dict:
         print(f"   frame times anchored to telemetry clock (t0={img_t[0]:.4f}s)")
 
     stage("1. intrinsic calibration")
-    calib, _ = camera_calibrator.calibrate_camera(
+    calib, calib_details = camera_calibrator.calibrate_camera(
         corners_cam, args.camera_model,
         camera_calibrator.CameraCalibratorOptions(grid_size=args.voxel_grid_size),
         device=device)
@@ -268,6 +268,10 @@ def run(args) -> dict:
         # biases (downstream consumers can tell from this marker).
         "bias_estimate": bias_source,
         "stage_timings_s": timings,
+        # Stage 1's LM solves (the double sphere's multi-start among them)
+        # and its initialization seconds (core/camera_calibrator).
+        "intrinsics_solves": calib_details["lm_stages"],
+        "intrinsics_init_s": calib_details["init_seconds"],
     }
     print(json.dumps(summary, indent=1))
     if ws:

@@ -19,6 +19,20 @@ Parameters are ``{"cam", "q_cw", "t_cw", "pts"}``: the camera model
 vector, per-view camera-from-world quaternions and translations, and the
 board points. ``calibrate_camera_batch`` runs N (model, dataset) jobs
 through one lane-batched three-stage BA (``lm.lm_optimize_lanes``).
+
+Departures from the JAX package, both in the reference's (Ceres') sense:
+
+* An LM trial that turns invalid an observation which was valid at the
+  linearization point fails (``_guard_lost_observations``), as a Ceres
+  step fails when a cost functor returns ``false``. In the JAX package an
+  invalid projection leaves the cost instead, so a step that makes every
+  projection invalid costs 0 and is taken (the double sphere in float32
+  walks there, xi driven far negative).
+* The stage-1 multi-start keeps the start with the most observations in
+  the cost, and of those the lowest cost (``_pick_start``); a calibration
+  left with no valid observation raises ``ValueError`` instead of
+  reporting 0 px. Where no trial turns an observation invalid and every
+  start ends with the same observations, the answer is the JAX package's.
 """
 
 from __future__ import annotations
@@ -28,6 +42,7 @@ import time
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from openimucameracalibrator_torch.models import cameras
 from openimucameracalibrator_torch.ops import lie, pnp
@@ -67,31 +82,91 @@ def _project(model, params):
     return model.project(params["cam"], p_cam)
 
 
-def _make_residual_fn(model: cameras.CameraModel, obs, valid, px_scale=1.0):
+def _observation_terms(projected, obs, valid, view_w):
+    """(whitened residuals flattened over (view, point, xy), the mask of the
+    observations in the cost: detected, validly projected, of an active
+    view) from the projection ``(uv, ok)``."""
+    uv, ok = projected
+    good = valid & ok
+    w = good.to(uv.dtype) * view_w[:, None]
+    return ((uv - obs) * w[..., None]).reshape(-1), good & (view_w[:, None] > 0)
+
+
+def _make_residual_fn(model: cameras.CameraModel, obs, valid):
     """Whitened reprojection residuals, flattened over (view, point, xy)."""
 
     def residual(params, view_w):
-        uv, ok = _project(model, params)
-        w = (valid & ok).to(uv.dtype) * view_w[:, None]
-        r = (uv - obs) * w[..., None] * px_scale
-        return r.reshape(-1)
+        return _observation_terms(_project(model, params), obs, valid, view_w)[0]
 
     return residual
 
 
+def _huber(r):
+    return robust.huber_sqrt_weights(r, HUBER_PX, group_size=2)
+
+
+def _guard_lost_observations(linearize_fn, terms_fn):
+    """(linearize_fn, cost_fn, state) of an LM solve in which a trial that
+    turns invalid an observation valid at the linearization point costs
+    NaN, which the LM rejects on the finiteness it already reads (no
+    further host read). ``terms_fn(params) -> (residuals (..., M), mask
+    (..., V, P))`` as ``_observation_terms``, a leading dim being lanes;
+    the cost is the Huber cost of ``lm.make_dense_linearizer``.
+    ``state["lost"]`` counts the failed trials on the device (None before
+    the first)."""
+    state = {"ref": None, "lost": None}
+
+    def linearize(params):
+        state["ref"] = terms_fn(params)[1]
+        return linearize_fn(params)
+
+    def cost(params):
+        r, good = terms_fn(params)
+        rw = r * _huber(r)
+        c = 0.5 * torch.sum(rw * rw, dim=-1)
+        if state["ref"] is None:
+            return c
+        lost = torch.any((state["ref"] & ~good).flatten(c.ndim), dim=-1)
+        state["lost"] = lost.long() if state["lost"] is None else state["lost"] + lost
+        return torch.where(lost, torch.full_like(c, float("nan")), c)
+
+    return linearize, cost, state
+
+
 def _run_ba_stage(params0, free_mask, view_w, obs, valid, model_name: str, max_iters: int):
-    """One LM solve; returns the ``lm.LMResult``."""
+    """One LM solve: (``lm.LMResult``, observations in the cost at its end,
+    trials failed for losing one), the last two as device tensors."""
     model = cameras.get_model(model_name)
     layout = _build_layout(obs.shape[0], model.num_params, params0["pts"].shape[0])
-    residual = _make_residual_fn(model, obs, valid)
 
-    def wfn(r):
-        return robust.huber_sqrt_weights(r, HUBER_PX, group_size=2)
+    def terms(p):
+        return _observation_terms(_project(model, p), obs, valid, view_w)
 
-    lin, cost, retract = lm.make_dense_linearizer(lambda p: residual(p, view_w), layout,
-                                                  weight_fn=wfn)
-    return lm.lm_optimize(lin, cost, retract, params0, free_mask,
-                          lm.LMConfig(max_iters=max_iters, ftol=1e-8))
+    lin, _, retract = lm.make_dense_linearizer(lambda p: terms(p)[0], layout,
+                                               weight_fn=_huber)
+    lin, cost, state = _guard_lost_observations(lin, terms)
+    res = lm.lm_optimize(lin, cost, retract, params0, free_mask,
+                         lm.LMConfig(max_iters=max_iters, ftol=1e-8))
+    lost = state["lost"]
+    if lost is None:
+        lost = torch.zeros((), dtype=torch.long, device=res.cost.device)
+    return res, terms(res.params)[1].sum(), lost
+
+
+def _pick_start(costs, n_valid, what: str) -> int:
+    """The stage-1 start to keep: of the starts with a finite cost (any,
+    where none has one), those with the most observations in the cost, and
+    of them the lowest cost, the first on a tie. A start that ends with
+    fewer valid observations than another never wins on cost. Raises
+    ``ValueError`` where the kept start has no valid observation."""
+    costs, n = np.asarray(costs, np.float64), np.asarray(n_valid, np.int64)
+    finite = np.isfinite(costs)
+    best = min(range(costs.size),
+               key=lambda i: (not finite[i], -n[i], costs[i] if finite[i] else 0.0))
+    if n[best] == 0:
+        raise ValueError(f"{what}: no valid observation; every projection is invalid under "
+                         f"each of the {costs.size} stage-1 start(s)")
+    return best
 
 
 def _per_view_rmse(params, obs, valid, model_name: str):
@@ -179,9 +254,14 @@ def calibrate_camera(dataset: CornerDataset, model_name: str,
     """Full intrinsic calibration on ``device`` (default ``"cuda"``).
 
     Returns (CameraCalibration, details dict). ``details["lm_stages"]``
-    holds each LM solve's iterations, status and host seconds, and
-    ``details["init_seconds"]`` the host seconds of the initialization and
-    view deduplication.
+    holds one record per LM solve: its ``stage`` (1 for each multi-start
+    solve, ``xi0`` its start's xi, None for a model without one),
+    iterations, status, host seconds, final cost, ``valid_obs`` (the
+    observations in the cost at its end), ``lost_valid_trials`` (trials
+    failed for turning one invalid) and whether its answer was kept
+    (``chosen``); ``details["init_seconds"]`` the host seconds of the
+    initialization and view deduplication. Raises ``ValueError`` where no
+    observation stays valid.
     """
     opts = options or CameraCalibratorOptions()
     device = precision.resolve_device(device)
@@ -243,47 +323,54 @@ def calibrate_camera(dataset: CornerDataset, model_name: str,
     def free_mask(**kw):
         return layout.free_mask(**kw, dtype=dt, device=device)
 
-    def stage(params, mask, view_w):
-        res = _run_ba_stage(params, mask, view_w, obs, valid, model.name, opts.max_iters)
-        stages.append({"iterations": int(res.iterations), "seconds": res.seconds,
-                       "status": lm.STATUS_NAMES[res.status]})
-        return res.params, res.cost, int(res.iterations)
+    def stage(k, params, mask, view_w, xi0=None):
+        with record_function(f"camera_calibrator.stage{k}"):
+            res, n_valid, lost = _run_ba_stage(params, mask, view_w, obs, valid, model.name,
+                                               opts.max_iters)
+            cost, n_valid, lost = torch.stack(
+                [res.cost.double(), n_valid.double(), lost.double()]).tolist()
+        stages.append({"stage": k, "xi0": xi0, "iterations": int(res.iterations),
+                       "seconds": res.seconds, "status": lm.STATUS_NAMES[res.status],
+                       "cost": cost, "valid_obs": int(n_valid), "lost_valid_trials": int(lost),
+                       "chosen": True})
+        return res.params, int(res.iterations)
 
     # Stage 1: focal + distortion + poses (camera_calibrator.cc:146-162).
     # Double-sphere multi-start: seed xi in {-0.25, 0, +0.25} with the focal
-    # rescaled to keep f/(1+xi) fixed; keep the lowest-cost solution.
+    # rescaled to keep f/(1+xi) fixed; keep the start ``_pick_start`` picks.
     mask1 = free_mask(fixed=["pts"],
                       partial_masks={"cam": cam_mask(groups["focal"] + groups["dist"])})
-    starts = [params]
-    if model.name == "double_sphere":
+    multistart = model.name == "double_sphere"
+    starts = [(float(cam0[4]) if multistart else None, params)]
+    if multistart:
         for xi0 in (-0.25, 0.25):
             cam_alt = cam0.clone()
             cam_alt[4] = xi0
             cam_alt[0] = cam0[0] * (1 + xi0)
             cam_alt[1] = cam0[1] * (1 + xi0)
-            starts.append(dict(params, cam=cam_alt))
-    best = None
-    for cand in starts:
-        out = stage(cand, mask1, view_w)
-        # A NaN stage-1 cost must never beat a finite alternative start.
-        if (best is None or not np.isfinite(float(best[1]))
-                or float(out[1]) < float(best[1])):
-            best = out
-    params, cost, it1 = best
+            starts.append((xi0, dict(params, cam=cam_alt)))
+    with record_function("camera_calibrator.multistart"):
+        outs = [stage(1, cand, mask1, view_w, xi0) for xi0, cand in starts]
+    ends = stages[-len(starts):]
+    k = _pick_start([e["cost"] for e in ends], [e["valid_obs"] for e in ends],
+                    f"{model.name} calibration of {picked.size} views")
+    for i, e in enumerate(ends):
+        e["chosen"] = i == k
+    params, it1 = outs[k]
     rmse, _ = _per_view_rmse(params, obs, valid, model.name)
     view_w = view_w * (rmse < opts.stage1_prune_px)
 
     # Stage 2: principal point only (camera_calibrator.cc:164-174).
     mask2 = free_mask(fixed=["q_cw", "t_cw", "pts"],
                       partial_masks={"cam": cam_mask(groups["pp"])})
-    params, cost, it2 = stage(params, mask2, view_w)
+    params, it2 = stage(2, params, mask2, view_w)
 
     # Stage 3: all intrinsics + poses, prune > 2 px (camera_calibrator.cc:181-201).
     mask3 = free_mask(fixed=["pts"])
-    params, cost, it3 = stage(params, mask3, view_w)
+    params, it3 = stage(3, params, mask3, view_w)
     rmse, _ = _per_view_rmse(params, obs, valid, model.name)
     view_w = view_w * (rmse < opts.stage3_prune_px)
-    params, cost, it4 = stage(params, mask3, view_w)
+    params, it4 = stage(3, params, mask3, view_w)
 
     if opts.optimize_board_points:
         # Stage 4: free the board points too; anchor the gauge by keeping
@@ -291,7 +378,10 @@ def calibrate_camera(dataset: CornerDataset, model_name: str,
         pts_mask = np.ones((board_pts.shape[0], 3))
         pts_mask[:2] = 0.0
         mask4 = free_mask(partial_masks={"pts": pts_mask})
-        params, cost, _ = stage(params, mask4, view_w)
+        params, _ = stage(4, params, mask4, view_w)
+    if stages[-1]["valid_obs"] == 0:
+        raise ValueError(f"{model.name} calibration: no valid observation left in the "
+                         f"{int(torch.count_nonzero(view_w))} active of {picked.size} views")
 
     rmse, _ = _per_view_rmse(params, obs, valid, model.name)
     active = view_w.cpu().numpy() > 0
@@ -352,32 +442,30 @@ def _lane_project(project, prm, mid):
 
 def _run_ba_stage_multi(params_b, mask_b, view_w_b, obs_b, valid_b, mid_b,
                         model_names: tuple, max_iters: int):
-    """One LM stage on every lane at once; returns the ``lm.LMResult``
-    (per-lane cost, iterations and status)."""
+    """One LM stage on every lane at once, each lane guarded as
+    ``_run_ba_stage``: (``lm.LMResult`` with per-lane cost, iterations and
+    status; observations in the cost at its end per lane (L,))."""
     from torch.func import vmap
 
     npad = params_b["cam"].shape[-1]
     layout = _build_layout(obs_b.shape[1], npad, params_b["pts"].shape[1])
     project = _switch_project(model_names)
 
-    def wfn(r):
-        return robust.huber_sqrt_weights(r, HUBER_PX, group_size=2)
+    def lane_terms(prm, view_w, obs, valid, mid):
+        return _observation_terms(_lane_project(project, prm, mid), obs, valid, view_w)
 
-    def lane_fns(view_w, obs, valid, mid):
-        def residual(prm):
-            uv, ok = _lane_project(project, prm, mid)
-            w = (valid & ok).to(uv.dtype) * view_w[:, None]
-            return ((uv - obs) * w[..., None]).reshape(-1)
-
-        return lm.make_dense_linearizer(residual, layout, weight_fn=wfn)
+    def lane_lin(prm, *d):
+        return lm.make_dense_linearizer(lambda p: lane_terms(p, *d)[0], layout,
+                                        weight_fn=_huber)[0](prm)
 
     data = (view_w_b, obs_b, valid_b, mid_b)
-    lin_b = vmap(lambda prm, *d: lane_fns(*d)[0](prm))
-    cost_b = vmap(lambda prm, *d: lane_fns(*d)[1](prm))
-    retract_b = vmap(layout.retract)
-    return lm.lm_optimize_lanes(lambda prm: lin_b(prm, *data), lambda prm: cost_b(prm, *data),
-                                retract_b, params_b, mask_b,
-                                lm.LMConfig(max_iters=max_iters, ftol=1e-8))
+    terms_b = vmap(lane_terms)
+    lin_b = vmap(lane_lin)
+    lin, cost, _ = _guard_lost_observations(lambda prm: lin_b(prm, *data),
+                                            lambda prm: terms_b(prm, *data))
+    res = lm.lm_optimize_lanes(lin, cost, vmap(layout.retract), params_b, mask_b,
+                               lm.LMConfig(max_iters=max_iters, ftol=1e-8))
+    return res, terms_b(res.params, *data)[1].sum((1, 2))
 
 
 def _per_view_rmse_multi(params_b, obs_b, valid_b, mid_b, model_names: tuple):
@@ -502,14 +590,14 @@ def calibrate_camera_batch(jobs, options: CameraCalibratorOptions | None = None,
         return _run_ba_stage_multi(prm, mask, vw, obs_t, valid_t, mid_t, model_names,
                                    opts.max_iters)
 
-    # Stage 1 (+ multi-start reduction).
-    res = stage(prm, m1, vw)
-    costs = res.cost.cpu().numpy()
+    # Stage 1 (+ multi-start reduction, the rule of calibrate_camera).
+    res, n_valid = stage(prm, m1, vw)
+    costs, n_valid = res.cost.double().cpu().numpy(), n_valid.cpu().numpy()
     keep = []
-    for ji in range(len(jobs)):
+    for ji, (model_name, _) in enumerate(jobs):
         idxs = [i for i, ln in enumerate(lanes) if ln["job"] == ji]
-        finite = [i for i in idxs if np.isfinite(costs[i])]
-        keep.append(min(finite or idxs, key=lambda i: costs[i]))
+        k = _pick_start(costs[idxs], n_valid[idxs], f"job {ji} ({model_name})")
+        keep.append(idxs[k])
     sel = torch.as_tensor(keep, device=device)
     prm = {k: v[sel] for k, v in res.params.items()}
     vw, obs_t, valid_t, mid_t = vw[sel], obs_t[sel], valid_t[sel], mid_t[sel]
@@ -517,11 +605,11 @@ def calibrate_camera_batch(jobs, options: CameraCalibratorOptions | None = None,
 
     rmse, _, _ = _per_view_rmse_multi(prm, obs_t, valid_t, mid_t, model_names)
     vw = vw * (rmse < opts.stage1_prune_px)
-    prm = stage(prm, m2, vw).params
-    prm = stage(prm, m3, vw).params
+    prm = stage(prm, m2, vw)[0].params
+    prm = stage(prm, m3, vw)[0].params
     rmse, _, _ = _per_view_rmse_multi(prm, obs_t, valid_t, mid_t, model_names)
     vw = vw * (rmse < opts.stage3_prune_px)
-    prm = stage(prm, m3, vw).params
+    prm = stage(prm, m3, vw)[0].params
 
     rmse, err, good = _per_view_rmse_multi(prm, obs_t, valid_t, mid_t, model_names)
     host = convert.ba_params_to_numpy(prm)
@@ -533,8 +621,11 @@ def calibrate_camera_batch(jobs, options: CameraCalibratorOptions | None = None,
         ln = lanes[keep[ji]]
         V = ln["obs"].shape[0]
         act = (vw_np[ji, :, None] > 0) & good_np[ji]
+        if not act.any():
+            raise ValueError(f"job {ji} ({model_name}): no valid observation left in the "
+                             f"{int(np.count_nonzero(vw_np[ji]))} active of {V} views")
         tot = err_np[ji][act].sum()
-        n = max(int(act.sum()), 1)
+        n = int(act.sum())
         calib = CameraCalibration(
             model_name=m.name, params=host["cam"][ji][:m.num_params],
             image_size=dataset.image_size, mean_reproj_error=float(tot / n), fps=dataset.fps)

@@ -91,6 +91,10 @@ def estimate_imu_to_camera_rotation(poses: PoseDataset, imu: ImuData,
     device = precision.resolve_device(device)
     dt = precision.default_dtype(device)
     ok = np.asarray(poses.valid, bool)
+    if not ok.any():
+        # The JAX package fails here with an IndexError on the empty set.
+        raise ValueError(f"empty pose set: none of the {ok.size} views has a valid pose "
+                         "(stage 5 posed no view), so there is no visual rotation to align")
     pose_t = np.asarray(poses.times, np.float64)[ok]
     # Fix quaternion hemisphere continuity before slerp.
     qn = np.array(poses.q_w_c, np.float64)[ok]

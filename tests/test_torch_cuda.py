@@ -298,6 +298,53 @@ def test_camera_batch_on_the_card_matches_the_cpu(cuda_device):
         assert cg.mean_reproj_error == pytest.approx(cw.mean_reproj_error, rel=1e-3)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("run_seed", [102, 103])
+def test_double_sphere_rig_on_the_card_recovers_the_truth(cuda_device, run_seed, tmp_path):
+    """Stage 1 of the gopro6_ds5 rig as its benchmark cell makes it: the
+    300 intrinsics views of the cell's first recording for run seeds 102
+    and 103 (read back from the corner file), the CLI's 0.04 m voxel grid,
+    float32 on the card. Unguarded, the multi-start kept an all-invalid
+    start on both (f_x 18,408.7 and -46,313.8 at 0 px). The bars of
+    tests/test_torch_double_sphere.py and their reasons: f / (1 + xi)
+    within 3 % (seed 102 reads 444.3 against 436.2, +1.85 %), the
+    principal point within 2.5 px, over 95 % of the kept views'
+    observations validly projected, a mean error above 0."""
+    import json
+    import os
+
+    from benchmarks.entries import calibrate as bench_calibrate
+    from benchmarks.gen import files, scene
+    from openimucameracalibrator_torch.utils import io
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "benchmarks", "configs", "gopro6_ds5.json")) as f:
+        cfg = json.load(f)
+    truth = np.asarray(cfg["cam_params"], np.float64)
+    noise_seed = bench_calibrate.noise_seeds(run_seed, 2)[0]
+    sc = scene.make_intrinsics_scene("double_sphere", truth, num_views=300,
+                                     image_size=tuple(cfg["image_size"]), noise_px=0.2,
+                                     seed=11 + 1000, noise_seed=noise_seed + 1, device="cpu")
+    path = str(tmp_path / "cam_corners.uson")
+    files.write_corners(path, sc.frame_times, sc.observations, sc.obs_valid, sc.board_points,
+                        sc.image_size, cfg["cam_fps"])
+    ds = io.load_corners(path)
+    calib, det = camera_calibrator.calibrate_camera(
+        ds, "DOUBLE_SPHERE", camera_calibrator.CameraCalibratorOptions(grid_size=0.04),
+        device=cuda_device)
+    p = np.asarray(calib.params, np.float64)
+    mag, mag_true = p[0] / (1 + p[4]), truth[0] / (1 + truth[4])
+    assert abs(mag - mag_true) / mag_true < 0.03
+    np.testing.assert_allclose(p[2:4], truth[2:4], rtol=0, atol=2.5)
+    assert calib.mean_reproj_error > 0.1
+    valid = np.asarray(ds.valid)[det["picked_views"]]
+    q, t = torch.as_tensor(det["q_cw"]), torch.as_tensor(det["t_cw"])
+    p_cam = lie.quat_rotate(q[:, None, :], torch.as_tensor(det["board_points"])[None]) \
+        + t[:, None, :]
+    _, ok = cameras.get_model("double_sphere").project(torch.as_tensor(p), p_cam)
+    assert (ok.numpy() & valid).sum() > 0.95 * valid.sum()
+
+
 def _card_sequences(device, durations=(3.0, 4.5), seeds=(3, 4)):
     """Pinhole recordings of tests/test_batch_estimator.py's settings on the
     card: [(problem, params0)] in float32."""

@@ -147,6 +147,19 @@ def test_rotation_init_matches_jax(rotation_inputs):
                                ij.debug_imu_ang_vel_transformed, atol=1e-6)
 
 
+def test_rotation_init_names_an_empty_pose_set(rotation_inputs):
+    """Stage 7 after a stage 5 that posed no view: the port raises a
+    ValueError that names the empty pose set where the JAX package fails
+    with an IndexError."""
+    poses, imu = rotation_inputs
+    none = dict(poses, valid=np.zeros_like(poses["valid"]))
+    with pytest.raises(IndexError):
+        j_rot.estimate_imu_to_camera_rotation(j_types.PoseDataset(**none), j_types.ImuData(*imu))
+    with pytest.raises(ValueError, match="empty pose set"):
+        t_rot.estimate_imu_to_camera_rotation(t_types.PoseDataset(**none),
+                                              t_types.ImuData(*imu), device="cpu")
+
+
 def test_rotation_init_recovers_the_truth(rotation_inputs):
     """The JAX test's bars (test_pose_and_rotation.py), on the port alone,
     with camera times far from zero (a 1,000 s clock: the rebase to the
